@@ -1,0 +1,379 @@
+"""Smoke run of the PyTorch/CUDA port (craytpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+  1. build   — nvcc builds both kernels from craytpu_torch/csrc (in
+               parallel) into build/craytpu_torch/.
+  2. kernels — each kernel's wrapper on CUDA tensors at a shape the
+               render gives it, against its plain PyTorch version on CPU
+               copies of the same inputs: bit-equal (NaN == NaN). Also
+               times the kernel and the plain version (on the card) with
+               CUDA events, and works out the kernel's bound.
+               K1 (hit records): 2^20 random winner ids (a first-bounce
+               batch); K2 (closest hit): 2^16 rays of stress_highpoly,
+               half primary, half random (a compacted bucket).
+  3. golden  — stress_highpoly and stress_instances at 80x50, 4 spp,
+               through the kernels, against goldens/*_80_4.png at the
+               thresholds of craytpu_torch/utils/golden.py.
+  4. render  — the main path at full width: Renderer.load_scene_from_file
+               -> start_renderer -> write_image on
+               assets/stress_highpoly.json at 1920x1080, its own 12
+               bounces, 4 spp, after one warm-up pass. Launch counters
+               are set to 0 just before and read just after; both kernels
+               must have launched. Prints paths/s, peak device memory,
+               and, over two more frames, each kernel's launches and time
+               per frame (CUDA events around each launch) and the
+               frame's device-time breakdown (torch.profiler).
+Then one line {"kernels": [...]} and, last, the ok line with the device.
+Needs one CUDA card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and non-tensor f32 rate
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations (mul/add/sub/div/sqrt, counted from csrc/detmath.cuh and
+# the kernels) per unit of work: K2 per inner-node visit (two slab tests),
+# per triangle test, per sphere test (with its instance transform); K1 per
+# lane (the whole record)
+K2_OPS_INNER, K2_OPS_TRI, K2_OPS_SPHERE = 24, 311, 619
+K1_OPS_LANE = 1851
+# K1 bytes per lane: 7 ray floats and 2 ids in, 16 record floats out; the
+# tri_wide (32-float) and inst_wide (28-float) rows count once per row read
+K1_BYTES_LANE = (7 + 2 + 16) * 4
+K1_BYTES_TRI_ROW, K1_BYTES_INST_ROW = 32 * 4, 28 * 4
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps runs, CUDA events, after one
+    warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bit_diff(got, want, name: str) -> float:
+    """Fail unless float tensors are bit-equal (NaN == NaN). Returns the
+    largest |got - want| over finite entries (0.0 when equal)."""
+    g = np.ascontiguousarray(got.cpu().numpy())
+    w = np.ascontiguousarray(want.cpu().numpy())
+    if g.shape != w.shape or g.dtype != w.dtype:
+        fail(f"{name}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+    if g.dtype == np.float32:
+        nan = np.isnan(g) & np.isnan(w)
+        bad = (g.view(np.uint32) != w.view(np.uint32)) & ~nan
+    else:
+        bad = g != w
+    fin = np.isfinite(g) & np.isfinite(w) if g.dtype == np.float32 else None
+    err = float(np.max(np.abs(g[fin].astype(np.float64)
+                              - w[fin].astype(np.float64)), initial=0.0)) \
+        if fin is not None else float(np.max(np.abs(g - w), initial=0))
+    if bad.any():
+        fail(f"{name}: kernel and plain version differ in {int(bad.sum())} "
+             f"of {bad.size} values (max |d| {err})")
+    return err
+
+
+def load(name: str, overrides: dict):
+    from craytpu_torch.scene.sceneloader import load_scene_from_file
+    return load_scene_from_file(os.path.join(REPO, "assets",
+                                             f"{name}.json"), overrides)
+
+
+def phase_kernels(torch) -> dict:
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.scene.compile import compile_scene
+
+    cs_cpu = compile_scene(load("stress_highpoly",
+                                {"width": 1920, "height": 1080}), "cpu")
+    geom = cs_cpu.geom.to("cuda")
+    rng = np.random.default_rng(20260)
+    out = {}
+
+    # ---- K2: 2^16 rays, half primary (camera rays of the frame's first
+    # batch), half random through the scene bounds; every 8th lane dead
+    B2 = 1 << 16
+    ren = WavefrontRenderer(cs_cpu)
+    sel = rng.choice(1920 * 1080, B2 // 2, replace=False)
+    xs = torch.from_numpy((sel % 1920).astype(np.int32))
+    ys = torch.from_numpy((sel // 1920).astype(np.int32))
+    o_p, d_p, _ = ren._init_rays(xs, ys, 0, 4)
+    bb = cs_cpu.geom.node_bounds[0].numpy()
+    lo, hi = bb[[0, 2, 4]], bb[[1, 3, 5]]
+    o_r = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo),
+                      (B2 // 2, 3)).astype(np.float32)
+    d_r = rng.normal(size=(B2 // 2, 3)).astype(np.float32)
+    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
+    o = torch.cat([o_p, torch.from_numpy(o_r)]).contiguous()
+    d = torch.cat([d_p, torch.from_numpy(d_r)]).contiguous()
+    limit = torch.where(torch.arange(B2) % 8 == 7, 0.0, trv.FLT_MAX)
+    args = (cs_cpu.tlas_end, cs_cpu.stack_depth)
+    counts = trv.new_counts()
+    t0 = time.perf_counter()
+    want = trv.traverse_plain(cs_cpu.geom, o, d, limit, *args, counts)
+    plain_cpu_s = time.perf_counter() - t0
+    oc, dc, lc = o.cuda(), d.cuda(), limit.cuda()
+    got = trv.closest_hit(geom, oc, dc, lc, *args)
+    torch.cuda.synchronize()
+    bit_diff(got.inst, want.inst, "K2 inst")
+    bit_diff(got.prim, want.prim, "K2 prim")
+    err = bit_diff(got.t, want.t, "K2 t")
+    hits = int((want.inst >= 0).sum())
+    ms = cuda_ms(lambda: trv.closest_hit(geom, oc, dc, lc, *args), 20)
+    plain_ms = cuda_ms(lambda: trv.traverse_plain(geom, oc, dc, lc, *args),
+                       1)
+    ops = (K2_OPS_INNER * counts["inner"] + K2_OPS_TRI * counts["tri"]
+           + K2_OPS_SPHERE * counts["sphere"])
+    # bytes: each ray's 7 input and 3 output words, and once each scene
+    # row this data reads: bounds, child and count (32 B) of every node
+    # read, packed row (48 B) and prim_idx slot (4 B) of every triangle
+    # tested
+    n_nodes = int(torch.unique(torch.cat(counts["node_ids"])).numel())
+    n_tris = int(torch.unique(torch.cat(counts["tri_ids"])).numel())
+    nbytes = B2 * (7 + 3) * 4 + n_nodes * 32 + n_tris * (48 + 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    out["closest_hit"] = dict(
+        name="closest_hit", ok=True, route="cuda",
+        source="craytpu_torch/csrc/closest_hit.cu",
+        replaces="craytpu/ops/flash2.py:185", launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+    print(f"K2 closest_hit: B={B2} hits={hits} bit-equal to the plain "
+          f"version (plain on CPU {plain_cpu_s:.1f} s); work: "
+          f"{counts['inner']} inner visits, {counts['tri']} triangle tests, "
+          f"{counts['sphere']} sphere tests, {n_nodes} nodes and {n_tris} "
+          f"triangles read -> {ops:.3e} f32 ops, {nbytes / 1e6:.2f} MB; "
+          f"kernel {ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+
+    # ---- K1: 2^20 random winner ids over the same scene
+    B1 = 1 << 20
+    P = cs_cpu.tri_wide.shape[0]
+    I = cs_cpu.inst_wide.shape[0]
+    o1 = torch.from_numpy(rng.uniform(lo, hi, (B1, 3)).astype(np.float32))
+    d1 = rng.normal(size=(B1, 3)).astype(np.float32)
+    d1 = torch.from_numpy(d1 / np.linalg.norm(d1, axis=1, keepdims=True))
+    t_k = torch.from_numpy(rng.uniform(0, 50, B1).astype(np.float32))
+    prim = torch.from_numpy(rng.integers(-1, P, B1, dtype=np.int32))
+    inst = torch.from_numpy(rng.integers(-1, I, B1, dtype=np.int32))
+    k1_in = (o1, d1, t_k, prim, inst)
+    want = hr.hitrec_record(cs_cpu.tri_wide, cs_cpu.inst_wide, *k1_in, True)
+    tw, iw = cs_cpu.tri_wide.cuda(), cs_cpu.inst_wide.cuda()
+    k1_dev = [x.cuda() for x in k1_in]
+    got = hr.hitrec_record(tw, iw, *k1_dev, True)
+    torch.cuda.synchronize()
+    err = bit_diff(got, want, "K1 record")
+    ms = cuda_ms(lambda: hr.hitrec_record(tw, iw, *k1_dev, True), 20)
+    plain_ms = cuda_ms(lambda: hr.hitrec_plain(tw, iw, *k1_dev, True), 3)
+    # each table row this data reads counts once (the kernel reads the
+    # row of id 0 for a lane whose id is -1)
+    n_trows = int(np.unique(np.maximum(prim.numpy(), 0)).size)
+    n_irows = int(np.unique(np.maximum(inst.numpy(), 0)).size)
+    nbytes = (B1 * K1_BYTES_LANE + n_trows * K1_BYTES_TRI_ROW
+              + n_irows * K1_BYTES_INST_ROW)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B1 * K1_OPS_LANE / F32_OPS_PER_S * 1e3
+    out["hitrec"] = dict(
+        name="hitrec", ok=True, route="cuda",
+        source="craytpu_torch/csrc/hitrec.cu",
+        replaces="craytpu/ops/hitrec_kernel.py:37", launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+    print(f"K1 hitrec: B={B1} bit-equal to the plain version; work: "
+          f"{n_trows} tri_wide and {n_irows} inst_wide rows read, "
+          f"{nbytes / 1e6:.2f} MB, {B1 * K1_OPS_LANE:.3e} f32 ops; kernel "
+          f"{ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+    return out
+
+
+def phase_golden(torch) -> None:
+    from craytpu_torch.models.wavefront_pt import render
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.utils import golden
+
+    for name in ("stress_highpoly", "stress_instances"):
+        n_k2, n_k1 = trv.closest_hit.launches, hr.hitrec_record.launches
+        cs = compile_scene(load(name, {"width": 80, "height": 50,
+                                       "samples": 4}))
+        fb = render(cs, spp=4)
+        if not (trv.closest_hit.launches > n_k2
+                and hr.hitrec_record.launches > n_k1):
+            fail(f"golden {name}: the render did not go through the "
+                 "kernels")
+        ok, within, mean_abs = golden.compare(fb, name, 80, 50, 4)
+        print(f"golden {name} 80x50 4spp: within1lsb={within:.5f} "
+              f"mean_abs={mean_abs:.4f} ok={ok}", flush=True)
+        if not ok:
+            fail(f"golden {name}")
+
+
+def profile_frame(torch, cscene, spp: int) -> dict:
+    """One frame under torch.profiler: device time per kernel name (ms),
+    the whole device time and the frame's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    ren = WavefrontRenderer(cscene)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ren.render(spp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t_us = getattr(ev, "device_time_total",
+                       getattr(ev, "cuda_time_total", 0.0))
+        name, n = by_name.get(ev.key, (0.0, 0))
+        by_name[ev.key] = (name + t_us / 1e3, n + ev.count)
+    return {"by_name": by_name, "wall_ms": wall_ms,
+            "device_ms": sum(v[0] for v in by_name.values())}
+
+
+def phase_render(torch, kernels: dict) -> None:
+    from craytpu_torch.api import Renderer
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+
+    W, H, SPP = 1920, 1080, 4
+    r = Renderer(overrides={"width": W, "height": H, "samples": 1})
+    if not r.load_scene_from_file(os.path.join(REPO, "assets",
+                                               "stress_highpoly.json")):
+        fail("stress_highpoly.json did not load")
+    r.set_output_path(os.path.join(REPO, "build", "chip_smoke") + "/")
+    t0 = time.perf_counter()
+    r.start_renderer()                       # warm-up pass (1 spp)
+    torch.cuda.synchronize()
+    print(f"warm-up pass: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    r.set_sample_count(SPP)
+    marks = []
+
+    def progress(p, spp, accum):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    trv.closest_hit.launches = 0
+    hr.hitrec_record.launches = 0
+    r.start_renderer(progress)
+    n_k2, n_k1 = trv.closest_hit.launches, hr.hitrec_record.launches
+    path = r.write_image()
+    peak = torch.cuda.max_memory_allocated()
+    if n_k2 == 0 or n_k1 == 0:
+        fail(f"main path launched closest_hit {n_k2}x, hitrec {n_k1}x")
+    kernels["closest_hit"]["launches"] = n_k2
+    kernels["hitrec"]["launches"] = n_k1
+    fb = r.framebuffer
+    if fb.shape != (H, W, 4) or not np.isfinite(fb).all():
+        fail(f"frame: shape {fb.shape}, finite={np.isfinite(fb).all()}")
+    if not fb[..., :3].max() > 0.0:
+        fail("frame is black")
+    paths_s = W * H * (SPP - 1) / (marks[-1] - marks[0])
+    print(f"render stress_highpoly {W}x{H} {SPP}spp "
+          f"bounces={r.bounces()}: frame {r.render_time_ms / 1e3:.2f} s "
+          f"(scene compile included), {paths_s:.0f} paths/s over passes "
+          f"2-{SPP}; launches per frame: closest_hit {n_k2}, hitrec {n_k1}; "
+          f"peak device memory {peak / 2**30:.2f} GiB; wrote {path}",
+          flush=True)
+    # kernel time per frame: CUDA events around each launch of one more
+    # frame, then a profiled frame for the whole device-time breakdown
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import cuda_build
+    with cuda_build.launch_timing() as times:
+        WavefrontRenderer(r.compiled).render(SPP)
+    prof = profile_frame(torch, r.compiled, SPP)
+    by_name = prof["by_name"]
+    for k, name in (("closest_hit_kernel", "closest_hit"),
+                    ("hitrec_kernel", "hitrec")):
+        ev = times.get(name, [])
+        hits = [v for key, v in by_name.items() if k in key]
+        prof_ms = (f"{sum(v[0] for v in hits):.2f} ms" if hits
+                   else "not measured")
+        print(f"  {name}: per frame {len(ev)} launches, {sum(ev):.2f} ms "
+              f"(CUDA events; profiler: {prof_ms})", flush=True)
+    print(f"profiled frame: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms "
+          f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%; "
+          f"{len(by_name)} kernel names); top device kernels:", flush=True)
+    for key, (ms, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {ms:9.2f} ms {n:6d}x  {key[:90]}", flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs one card")
+    try:
+        from craytpu_torch.ops import cuda_build
+        from craytpu_torch.utils.torchsetup import setup_torch
+    except ImportError as e:
+        fail(f"the craytpu_torch package is not here: {e}")
+    print(card_line(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    setup_torch()
+    secs = cuda_build.build_all()
+    print(f"build: {secs:.1f} s -> {cuda_build.BUILD_DIR}", flush=True)
+    kernels = phase_kernels(torch)
+    phase_golden(torch)
+    phase_render(torch, kernels)
+    print(json.dumps({"kernels": [kernels["closest_hit"],
+                                  kernels["hitrec"]]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,385 @@
+"""SceneHost -> device tensors + compiled shading programs.
+
+Flattens all per-mesh BVHs and the TLAS into unified global node arrays
+(node ids: [0, tlas_end) = TLAS, then each BLAS block), packs triangles,
+instances and spheres, builds the global material table, dedups material
+node graphs (the hash-consing analogue), prepares the ShadeParams tables
+and the denormalized hit-record rows (tri_wide, inst_wide) that the
+hit-record kernel gathers from.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Any
+
+import numpy as np
+import torch
+
+from craytpu_torch.ops import shading
+from craytpu_torch.ops.camera import CameraHost, make_camera_ray_fn
+from craytpu_torch.ops.hitrec import build_wide_rows
+from craytpu_torch.scene.device import (Geometry, ShadeGeom, INST_MESH,
+                                        INST_SPHERE)
+from craytpu_torch.scene.types import Prefs, SceneHost
+from craytpu_torch.utils.torchsetup import resolve_device
+
+F = np.float32
+I = np.int32
+
+
+@dataclass
+class CompiledScene:
+    geom: Geometry
+    shade: ShadeGeom
+    params: shading.ShadeParams
+    mat_graph: torch.Tensor       # (K,) i32 material -> graph id
+    graphs: list                  # unique bsdf IRs (static)
+    bg_ir: Any
+    reg: shading.Registry
+    camera: CameraHost
+    prefs: Prefs
+    tlas_end: int
+    stack_depth: int
+    n_instances: int
+    max_leaf_tris: int
+    max_leaf_inst: int
+    tri_wide: torch.Tensor        # (P, 32) f32 hit-record triangle rows
+    inst_wide: torch.Tensor       # (I, 28) f32 hit-record instance rows
+    sphere_uv: bool               # does any sphere material read uv?
+    device: torch.device
+
+    def bsdf_fns(self, kind: str):
+        return [shading.compile_bsdf(g, self.reg, kind) for g in self.graphs]
+
+    def background_fn(self):
+        return shading.compile_background(self.bg_ir, self.reg)
+
+    def camera_fn(self, kind: str):
+        return make_camera_ray_fn(self.camera, kind, self.device)
+
+
+def _cross_fms(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """vecCross with the reference BINARY's rounding: the contracted
+    build computes cross_i = fma(a_j, b_k, -(a_k*b_j)) — one f32-rounded
+    product, one fused one. Emulated via f64 (product exact in f64; the
+    final f64->f32 round matches a true fma except ~2^-29-probability
+    double-rounding ties). Device-side analogue: vecmath.vcross."""
+    def fms(x, y, c):
+        return (x.astype(np.float64) * y.astype(np.float64)
+                - c.astype(np.float64)).astype(F)
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    return np.stack([
+        fms(ay, bz, (az * by).astype(F)),
+        fms(az, bx, (ax * bz).astype(F)),
+        fms(ax, by, (ay * bx).astype(F)),
+    ], axis=1)
+
+
+def _mat34(A: np.ndarray) -> np.ndarray:
+    return A[:3, :4].astype(F)
+
+
+_CONST_KINDS = ("const_color", "const_value", "const_vec")
+
+
+def _skeleton(ir):
+    """IR with constant-node VALUES stripped (structure key)."""
+    if isinstance(ir, tuple):
+        if len(ir) and ir[0] in _CONST_KINDS:
+            return (ir[0],)
+        return tuple(_skeleton(x) for x in ir)
+    return ir
+
+
+def _build_structures(irs: list, K: int, reg) -> tuple:
+    """Group materials by graph structure; emit param-indirected IRs.
+
+    Returns (structures, mat_graph (K,) i32). Singleton groups keep their
+    concrete IR (no indirection cost)."""
+    from craytpu_torch.scene.nodegraph import warning_bsdf
+    irs = [ir if ir is not None else warning_bsdf() for ir in irs]
+    groups: dict = {}
+    for k, ir in enumerate(irs):
+        groups.setdefault(_skeleton(ir), []).append(k)
+
+    Kp = max(K, 1)
+    param_kind = {"const_color": ("param_color", reg.color_idx),
+                  "const_value": ("param_value", reg.value_idx),
+                  "const_vec": ("param_vec", reg.vec_idx)}
+
+    def xform(subs: list, members: list):
+        head = subs[0]
+        if isinstance(head, tuple):
+            if len(head) and head[0] in _CONST_KINDS:
+                pk, register = param_kind[head[0]]
+                tbl = np.zeros(Kp, np.int32)
+                for m_k, s in zip(members, subs):
+                    tbl[m_k] = register(s[1])
+                return (pk, tbl)
+            return tuple(
+                xform([s[i] for s in subs], members)
+                if isinstance(head[i], tuple) else head[i]
+                for i in range(len(head)))
+        return head
+
+    structures = []
+    mat_graph = np.zeros(Kp, np.int32)
+    for sk, members in groups.items():
+        gi = len(structures)
+        if len(members) == 1:
+            structures.append(irs[members[0]])
+        else:
+            structures.append(xform([irs[k] for k in members], members))
+        for m_k in members:
+            mat_graph[m_k] = gi
+    return structures, mat_graph
+
+
+def _reads_uv(ir) -> bool:
+    """Does a material graph read uv (checker/image nodes)?"""
+    if isinstance(ir, tuple):
+        if len(ir) and ir[0] in ("image", "checker"):
+            return True
+        return any(_reads_uv(x) for x in ir)
+    return False
+
+
+def compile_scene(scene: SceneHost, device=None) -> CompiledScene:
+    """Compile a loaded scene onto `device` (CUDA unless given)."""
+    device = resolve_device(device)
+    # ---- global material table: mesh materials (mesh order) then spheres
+    materials = []
+    mesh_mat_base = []
+    for mesh in scene.meshes:
+        mesh_mat_base.append(len(materials))
+        materials.extend(mesh.materials)
+    sphere_mat_ids = []
+    for sph in scene.spheres:
+        sphere_mat_ids.append(len(materials))
+        materials.append(sph.material)
+
+    emission = np.zeros((max(len(materials), 1), 4), F)
+    ior = np.ones(max(len(materials), 1), F)
+    for k, m in enumerate(materials):
+        emission[k] = m.emission
+        ior[k] = m.ior
+
+    # ---- triangles (global order: mesh order)
+    tri_base = []
+    total_tris = sum(m.tri_vidx.shape[0] for m in scene.meshes)
+    P = max(total_tris, 1)
+    tri_packed = np.zeros((P, 12), F)
+    tri_nidx = np.zeros((P, 3), I)
+    tri_uvidx = np.zeros((P, 3), I)
+    tri_has_n = np.zeros(P, bool)
+    tri_uv_ok = np.zeros(P, bool)
+    tri_mat = np.zeros(P, I)
+    pos = 0
+    verts = scene.vertices if scene.vertices is not None else np.zeros((1, 3), F)
+    for mi, mesh in enumerate(scene.meshes):
+        n = mesh.tri_vidx.shape[0]
+        tri_base.append(pos)
+        if n == 0:
+            continue
+        v0 = verts[mesh.tri_vidx[:, 0]].astype(F)
+        v1 = verts[mesh.tri_vidx[:, 1]].astype(F)
+        v2 = verts[mesh.tri_vidx[:, 2]].astype(F)
+        e1 = v0 - v1  # poly.c:20
+        e2 = v2 - v0  # poly.c:21
+        nrm = _cross_fms(e1, e2)
+        tri_packed[pos:pos + n] = np.concatenate([v0, e1, e2, nrm], axis=1)
+        tri_nidx[pos:pos + n] = np.maximum(mesh.tri_nidx, 0)
+        tri_uvidx[pos:pos + n] = np.maximum(mesh.tri_uvidx, 0)
+        tri_has_n[pos:pos + n] = mesh.tri_has_n
+        tri_uv_ok[pos:pos + n] = ((mesh.texcoord_count > 0)
+                                  & (mesh.tri_uvidx[:, 0] != -1))
+        tri_mat[pos:pos + n] = mesh_mat_base[mi] + mesh.tri_mat
+        pos += n
+
+    # ---- unified node arrays: TLAS first, then each BLAS
+    tlas = scene.tlas
+    node_blocks_b = [tlas.bounds]
+    node_blocks_c = [tlas.child.copy()]
+    node_blocks_n = [tlas.count.copy()]
+    prim_blocks = [tlas.prim_indices.copy()]  # instance ids
+    node_off = tlas.node_count
+    prim_off = tlas.prim_indices.shape[0]
+    blas_root = np.full(max(len(scene.meshes), 1), -1, I)
+    max_blas_depth = 0
+    for mi, mesh in enumerate(scene.meshes):
+        b = mesh.bvh
+        if b.node_count == 0:
+            continue
+        blas_root[mi] = node_off
+        child = b.child.copy()
+        inner = b.count == 0
+        child[inner] += node_off
+        child[~inner] += prim_off
+        node_blocks_b.append(b.bounds)
+        node_blocks_c.append(child)
+        node_blocks_n.append(b.count)
+        prim_blocks.append(b.prim_indices + tri_base[mi])
+        node_off += b.node_count
+        prim_off += b.prim_indices.shape[0]
+        max_blas_depth = max(max_blas_depth, b.max_depth())
+
+    node_bounds = np.concatenate(node_blocks_b) if node_off else \
+        np.zeros((1, 6), F)
+    node_child = np.concatenate(node_blocks_c).astype(I) if node_off else \
+        np.zeros(1, I)
+    node_count = np.concatenate(node_blocks_n).astype(I) if node_off else \
+        np.zeros(1, I)
+    prim_idx = (np.concatenate(prim_blocks).astype(I) if prim_off
+                else np.zeros(1, I))
+
+    # ---- instances
+    n_inst = len(scene.instances)
+    Imax = max(n_inst, 1)
+    inst_A = np.zeros((Imax, 3, 4), F)
+    inst_Ainv = np.zeros((Imax, 3, 4), F)
+    inst_kind = np.zeros(Imax, I)
+    inst_obj = np.zeros(Imax, I)
+    inst_offset = np.zeros(Imax, F)
+    inst_density = np.zeros(Imax, F)
+    for i, inst in enumerate(scene.instances):
+        inst_A[i] = _mat34(inst.transform.A)
+        inst_Ainv[i] = _mat34(inst.transform.Ainv)
+        inst_kind[i] = inst.kind
+        inst_obj[i] = inst.obj_index
+        inst_density[i] = inst.density
+        if inst.kind == INST_MESH:
+            inst_offset[i] = scene.meshes[inst.obj_index].ray_offset
+        elif inst.kind == INST_SPHERE:
+            inst_offset[i] = scene.spheres[inst.obj_index].ray_offset
+
+    # ---- spheres
+    S = max(len(scene.spheres), 1)
+    sph_radius = np.full(S, 10.0, F)
+    sph_mat = np.zeros(S, I)
+    for si, sph in enumerate(scene.spheres):
+        sph_radius[si] = sph.radius
+        sph_mat[si] = sphere_mat_ids[si]
+
+    normals = scene.normals if scene.normals is not None and \
+        scene.normals.shape[0] else np.zeros((1, 3), F)
+    uvs = scene.uvs if scene.uvs is not None and scene.uvs.shape[0] else \
+        np.zeros((1, 2), F)
+    nidx = np.minimum(tri_nidx, normals.shape[0] - 1)
+    uvidx = np.minimum(tri_uvidx, uvs.shape[0] - 1)
+    tri_shade = np.zeros((P, 16), F)
+    tri_shade[:, 0:3] = normals[nidx[:, 0]]
+    tri_shade[:, 3:6] = normals[nidx[:, 1]]
+    tri_shade[:, 6:9] = normals[nidx[:, 2]]
+    tri_shade[:, 9:11] = uvs[uvidx[:, 0]]
+    tri_shade[:, 11:13] = uvs[uvidx[:, 1]]
+    tri_shade[:, 13:15] = uvs[uvidx[:, 2]]
+    tri_mf = np.zeros((P, 2), I)
+    tri_mf[:, 0] = tri_mat
+    tri_mf[:, 1] = tri_has_n.astype(I) | (tri_uv_ok.astype(I) << 1)
+
+    reg = shading.Registry(scene.textures, device)
+    # Structure-keyed graph dedup: materials whose bsdf graphs differ only
+    # in constant values share ONE compiled structure that reads its
+    # constants through mat_id-indexed tables (param_* nodes).
+    graphs, mat_graph = _build_structures(
+        [m.bsdf_ir for m in materials], len(materials), reg)
+    # pre-register all remaining constants by compiling every graph once
+    # (indices are deterministic; the real compile happens per sampler kind)
+    from craytpu_torch.scene.nodegraph import background as bg_default
+    bg_ir = scene.background_ir or bg_default()
+    for g in graphs:
+        shading.compile_bsdf(g, reg, "random")
+    shading.compile_background(bg_ir, reg)
+    params = reg.finalize(emission, ior)
+
+    # Worst-case unified stack: every TLAS level can push a far node, every
+    # mesh instance can be pending as a BLAS root, and the deepest BLAS path
+    # pushes a far node per level. Overflowing pushes are dropped by the
+    # walk, but size generously so that never happens in practice.
+    n_mesh_inst = sum(1 for x in scene.instances if x.kind == INST_MESH)
+    stack_depth = (tlas.max_depth() + max_blas_depth
+                   + min(n_mesh_inst, 64) + 8)
+    stack_depth = max(stack_depth, 8)
+
+    # static leaf-size caps for the plain walk's masked prim loops
+    max_leaf_inst = int(tlas.count.max()) if tlas.node_count else 1
+    max_leaf_tris = 1
+    for mesh in scene.meshes:
+        if mesh.bvh.node_count:
+            max_leaf_tris = max(max_leaf_tris, int(mesh.bvh.count.max()))
+
+    sphere_uv = any(_reads_uv(scene.spheres[s].material.bsdf_ir)
+                    for s in range(len(scene.spheres)))
+    tri_wide, inst_wide = build_wide_rows(
+        tri_packed, tri_shade, tri_mf, inst_A, inst_Ainv, inst_offset,
+        inst_kind, inst_obj, sph_mat, sph_radius)
+
+    arrays = {
+        "geom.node_bounds": node_bounds, "geom.node_child": node_child,
+        "geom.node_count": node_count, "geom.prim_idx": prim_idx,
+        "geom.tri_packed": tri_packed, "geom.inst_A": inst_A,
+        "geom.inst_Ainv": inst_Ainv, "geom.inst_kind": inst_kind,
+        "geom.inst_obj": inst_obj, "geom.inst_offset": inst_offset,
+        "geom.inst_density": inst_density, "geom.blas_root": blas_root,
+        "geom.sph_radius": sph_radius,
+        "shade.tri_shade": tri_shade, "shade.tri_mf": tri_mf,
+        "shade.sph_mat": sph_mat,
+        "mat_graph": mat_graph, "tri_wide": tri_wide, "inst_wide": inst_wide,
+        "graphs": graphs, "bg_ir": bg_ir, "camera": scene.camera,
+        "prefs": scene.prefs, "tlas_end": int(tlas.node_count),
+        "stack_depth": int(stack_depth), "n_instances": n_inst,
+        "max_leaf_tris": max_leaf_tris, "max_leaf_inst": max_leaf_inst,
+        "sphere_uv": bool(sphere_uv),
+    }
+    return _assemble(arrays, params, reg, device)
+
+
+_STATIC = ("graphs", "bg_ir", "camera", "prefs", "tlas_end", "stack_depth",
+           "n_instances", "max_leaf_tris", "max_leaf_inst", "sphere_uv")
+
+
+def _assemble(arrays: dict, params, reg, device) -> CompiledScene:
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    def group(cls, prefix):
+        return cls(*(t(arrays[f"{prefix}.{f.name}"]) for f in fields(cls)))
+
+    return CompiledScene(
+        geom=group(Geometry, "geom"), shade=group(ShadeGeom, "shade"),
+        params=params, mat_graph=t(arrays["mat_graph"]), reg=reg,
+        tri_wide=t(arrays["tri_wide"]), inst_wide=t(arrays["inst_wide"]),
+        device=device, **{k: arrays[k] for k in _STATIC})
+
+
+def scene_arrays(cs: CompiledScene) -> dict:
+    """numpy copies of a compiled scene's tensors plus its static fields
+    and registry keys: the input scene_from_arrays takes."""
+    out = {f"geom.{k}": v for k, v in cs.geom.numpy().items()}
+    out.update({f"shade.{k}": v for k, v in cs.shade.numpy().items()})
+    out.update({f"params.{f.name}": getattr(cs.params, f.name).cpu().numpy()
+                for f in fields(cs.params)})
+    out.update(mat_graph=cs.mat_graph.cpu().numpy(),
+               tri_wide=cs.tri_wide.cpu().numpy(),
+               inst_wide=cs.inst_wide.cpu().numpy(), reg=cs.reg.keys())
+    out.update({k: getattr(cs, k) for k in _STATIC})
+    return out
+
+
+def scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
+    """Build the port's compiled scene from numpy arrays and static fields,
+    e.g. copies of another compile of the same scene (the JAX package's
+    CompiledScene), so both packages run on identical data. Keys: as
+    scene_arrays returns them ("geom.<field>", "shade.<field>",
+    "params.<field>", mat_graph, tri_wide, inst_wide, the static fields,
+    and "reg": the registry's constant keys in slot order)."""
+    device = resolve_device(device)
+    k = arrays["reg"]
+    reg = shading.Registry.from_keys(k["colors"], k["values"], k["vecs"],
+                                     k["tex_meta"], device)
+    params = shading.ShadeParams(*(
+        torch.as_tensor(np.array(arrays[f"params.{f.name}"]), device=device)
+        for f in fields(shading.ShadeParams)))
+    return _assemble(arrays, params, reg, device)
