@@ -4,7 +4,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. build   — nvcc builds both kernels from craytpu_torch/csrc (in
-               parallel) into build/craytpu_torch/.
+               parallel) into build/craytpu_torch/, and prints each
+               kernel's registers a thread, stack frame and spill bytes
+               (local memory) and static shared memory, as ptxas -v
+               reported them, and its static SASS instruction count.
   2. kernels — each kernel's wrapper on CUDA tensors at a shape the
                render gives it, against its plain PyTorch version on CPU
                copies of the same inputs: bit-equal (NaN == NaN). Also
@@ -12,7 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
                CUDA events, and works out the kernel's bound.
                K1 (hit records): 2^20 random winner ids (a first-bounce
                batch); K2 (closest hit): 2^16 rays of stress_highpoly,
-               half primary, half random (a compacted bucket).
+               half primary, half random (a compacted bucket), and the
+               1080p frame's first 2^20-lane primary batch, timed whole
+               and checked on every 16th lane (rays are independent).
   3. golden  — stress_highpoly and stress_instances at 80x50, 4 spp,
                through the kernels, against goldens/*_80_4.png at the
                thresholds of craytpu_torch/utils/golden.py.
@@ -23,8 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
                are set to 0 just before and read just after; both kernels
                must have launched. Prints paths/s, peak device memory,
                and, over two more frames, each kernel's launches and time
-               per frame (CUDA events around each launch) and the
-               frame's device-time breakdown (torch.profiler).
+               per frame (CUDA events around each launch), its time per
+               launch grouped by batch size, and the frame's device-time
+               breakdown (torch.profiler).
 Then one line {"kernels": [...]} and, last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
@@ -53,6 +59,8 @@ K1_OPS_LANE = 1851
 # tri_wide (32-float) and inst_wide (28-float) rows count once per row read
 K1_BYTES_LANE = (7 + 2 + 16) * 4
 K1_BYTES_TRI_ROW, K1_BYTES_INST_ROW = 32 * 4, 28 * 4
+# the main path's frame
+W, H, SPP = 1920, 1080, 4
 
 
 def fail(msg: str) -> None:
@@ -67,22 +75,6 @@ def card_line() -> str:
     if r.returncode != 0:
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs, CUDA events, after one
-    warm-up run."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def bit_diff(got, want, name: str) -> float:
@@ -113,48 +105,149 @@ def load(name: str, overrides: dict):
                                              f"{name}.json"), overrides)
 
 
-def phase_kernels(torch) -> dict:
+# The measurement helpers below use only what every commit of the port has
+# (scripts/torch_ab.py runs them on an earlier checkout's package too).
+
+def scene_box(cs):
+    bb = cs.geom.node_bounds[0].cpu().numpy()
+    return bb[[0, 2, 4]], bb[[1, 3, 5]]
+
+
+def mixed_rays(cs_cpu, rng, B: int = 1 << 16):
+    """B rays over a 1080p frame of the scene: half primary (camera rays
+    of random pixels, pass 0 of 4), half random through the scene bounds,
+    every 8th lane dead (a compacted bucket). CPU tensors (o, d, limit)."""
+    import torch
     from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import traverse as trv
+    ren = WavefrontRenderer(cs_cpu)
+    width = cs_cpu.camera.width
+    sel = rng.choice(width * cs_cpu.camera.height, B // 2, replace=False)
+    xs = torch.from_numpy((sel % width).astype(np.int32))
+    ys = torch.from_numpy((sel // width).astype(np.int32))
+    o_p, d_p, _ = ren._init_rays(xs, ys, 0, SPP)
+    lo, hi = scene_box(cs_cpu)
+    o_r = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo),
+                      (B // 2, 3)).astype(np.float32)
+    d_r = rng.normal(size=(B // 2, 3)).astype(np.float32)
+    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
+    o = torch.cat([o_p, torch.from_numpy(o_r)]).contiguous()
+    d = torch.cat([d_p, torch.from_numpy(d_r)]).contiguous()
+    limit = torch.where(torch.arange(B) % 8 == 7, 0.0, trv.FLT_MAX)
+    return o, d, limit
+
+
+def primary_batch(cs_dev):
+    """The frame's first ray batch (2^20 lanes at 1080p, tile order,
+    pass 0 of 4) on the scene's device: (o, d, limit)."""
+    import torch
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import traverse as trv
+    ren = WavefrontRenderer(cs_dev)
+    xs, ys, _, T = ren._pixel_schedule
+    o, d, _ = ren._init_rays(xs[:T], ys[:T], 0, SPP)
+    return o, d, torch.full((T,), trv.FLT_MAX, device=o.device)
+
+
+def winner_ids(cs_cpu, rng, B: int = 1 << 20):
+    """B random rays and winner ids, valid and -1 alike: CPU tensors
+    (o, d, t_k, prim, inst)."""
+    import torch
+    lo, hi = scene_box(cs_cpu)
+    P, I = cs_cpu.tri_wide.shape[0], cs_cpu.inst_wide.shape[0]
+    o = torch.from_numpy(rng.uniform(lo, hi, (B, 3)).astype(np.float32))
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True))
+    t_k = torch.from_numpy(rng.uniform(0, 50, B).astype(np.float32))
+    prim = torch.from_numpy(rng.integers(-1, P, B, dtype=np.int32))
+    inst = torch.from_numpy(rng.integers(-1, I, B, dtype=np.int32))
+    return o, d, t_k, prim, inst
+
+
+def cuda_ms(fn, reps: int, spin: bool = True) -> float:
+    """Mean device time of fn() over reps runs, by CUDA events, after one
+    warm-up run. With `spin`, the runs are queued behind a 50 ms device
+    spin, so that the device runs them back to back and host overhead
+    between launches is not timed (unless the host needs longer than the
+    spin to queue them, or fn synchronises). Without it, the events also
+    count any host time a launch takes beyond the previous kernel's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(100_000_000)  # about 50 ms of clock cycles
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main_path_renderer(torch):
+    """A Renderer on assets/stress_highpoly.json at W x H, its own
+    bounces, after one warm-up pass of 1 spp, set to SPP."""
+    from craytpu_torch.api import Renderer
+    r = Renderer(overrides={"width": W, "height": H, "samples": 1})
+    if not r.load_scene_from_file(os.path.join(REPO, "assets",
+                                               "stress_highpoly.json")):
+        fail("stress_highpoly.json did not load")
+    t0 = time.perf_counter()
+    r.start_renderer()                       # warm-up pass (1 spp)
+    torch.cuda.synchronize()
+    print(f"warm-up pass: {time.perf_counter() - t0:.2f} s", flush=True)
+    r.set_sample_count(SPP)
+    return r
+
+
+def timed_frame(torch, r) -> tuple[float, int]:
+    """One frame of r through start_renderer: (paths/s over passes 2 to
+    SPP, i.e. pixels x passes / their wall seconds, and the frame's peak
+    device memory in bytes)."""
+    marks = []
+
+    def progress(p, spp, accum):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    r.start_renderer(progress)
+    paths_s = W * H * (SPP - 1) / (marks[-1] - marks[0])
+    return paths_s, torch.cuda.max_memory_allocated()
+
+
+def phase_kernels(torch) -> dict:
     from craytpu_torch.ops import hitrec as hr
     from craytpu_torch.ops import traverse as trv
     from craytpu_torch.scene.compile import compile_scene
 
-    cs_cpu = compile_scene(load("stress_highpoly",
-                                {"width": 1920, "height": 1080}), "cpu")
-    geom = cs_cpu.geom.to("cuda")
+    host = load("stress_highpoly", {"width": W, "height": H})
+    cs_cpu = compile_scene(host, "cpu")
+    cs_dev = compile_scene(host, "cuda")
+    geom, layout = cs_dev.geom, cs_dev.layout
     rng = np.random.default_rng(20260)
     out = {}
 
-    # ---- K2: 2^16 rays, half primary (camera rays of the frame's first
-    # batch), half random through the scene bounds; every 8th lane dead
+    # ---- K2: 2^16 rays, half primary (camera rays of random pixels of the
+    # frame), half random through the scene bounds; every 8th lane dead
     B2 = 1 << 16
-    ren = WavefrontRenderer(cs_cpu)
-    sel = rng.choice(1920 * 1080, B2 // 2, replace=False)
-    xs = torch.from_numpy((sel % 1920).astype(np.int32))
-    ys = torch.from_numpy((sel // 1920).astype(np.int32))
-    o_p, d_p, _ = ren._init_rays(xs, ys, 0, 4)
-    bb = cs_cpu.geom.node_bounds[0].numpy()
-    lo, hi = bb[[0, 2, 4]], bb[[1, 3, 5]]
-    o_r = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo),
-                      (B2 // 2, 3)).astype(np.float32)
-    d_r = rng.normal(size=(B2 // 2, 3)).astype(np.float32)
-    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
-    o = torch.cat([o_p, torch.from_numpy(o_r)]).contiguous()
-    d = torch.cat([d_p, torch.from_numpy(d_r)]).contiguous()
-    limit = torch.where(torch.arange(B2) % 8 == 7, 0.0, trv.FLT_MAX)
+    o, d, limit = mixed_rays(cs_cpu, rng, B2)
     args = (cs_cpu.tlas_end, cs_cpu.stack_depth)
     counts = trv.new_counts()
     t0 = time.perf_counter()
     want = trv.traverse_plain(cs_cpu.geom, o, d, limit, *args, counts)
     plain_cpu_s = time.perf_counter() - t0
     oc, dc, lc = o.cuda(), d.cuda(), limit.cuda()
-    got = trv.closest_hit(geom, oc, dc, lc, *args)
+    got = trv.closest_hit(geom, oc, dc, lc, *args, layout)
     torch.cuda.synchronize()
     bit_diff(got.inst, want.inst, "K2 inst")
     bit_diff(got.prim, want.prim, "K2 prim")
     err = bit_diff(got.t, want.t, "K2 t")
     hits = int((want.inst >= 0).sum())
-    ms = cuda_ms(lambda: trv.closest_hit(geom, oc, dc, lc, *args), 20)
+    ms = cuda_ms(lambda: trv.closest_hit(geom, oc, dc, lc, *args, layout),
+                 20)
     plain_ms = cuda_ms(lambda: trv.traverse_plain(geom, oc, dc, lc, *args),
                        1)
     ops = (K2_OPS_INNER * counts["inner"] + K2_OPS_TRI * counts["tri"]
@@ -184,17 +277,29 @@ def phase_kernels(torch) -> dict:
           f"kernel {ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms", flush=True)
 
+    # ---- K2 on the 1080p frame's first primary batch (pass 0 of 4):
+    # timed on all 2^20 lanes, checked on every 16th lane
+    o_b, d_b, lim_b = primary_batch(cs_dev)
+    T = o_b.shape[0]
+    got = trv.closest_hit(geom, o_b, d_b, lim_b, *args, layout)
+    torch.cuda.synchronize()
+    sub = torch.arange(0, T, 16, device="cuda")
+    want = trv.traverse_plain(cs_cpu.geom, o_b[sub].cpu(), d_b[sub].cpu(),
+                              lim_b[sub].cpu(), *args)
+    bit_diff(got.inst[sub], want.inst, "K2 primary inst")
+    bit_diff(got.prim[sub], want.prim, "K2 primary prim")
+    bit_diff(got.t[sub], want.t, "K2 primary t")
+    ms_b = cuda_ms(lambda: trv.closest_hit(geom, o_b, d_b, lim_b, *args,
+                                           layout), 10)
+    print(f"K2 closest_hit: primary batch B={T} (1080p, pass 0, tile "
+          f"order) {ms_b:.4f} ms ({ms_b * 1e6 / T:.2f} ns a ray); every "
+          f"16th lane ({sub.numel()}) bit-equal to the plain version, "
+          f"{int((want.inst >= 0).sum())} hits", flush=True)
+
     # ---- K1: 2^20 random winner ids over the same scene
     B1 = 1 << 20
-    P = cs_cpu.tri_wide.shape[0]
-    I = cs_cpu.inst_wide.shape[0]
-    o1 = torch.from_numpy(rng.uniform(lo, hi, (B1, 3)).astype(np.float32))
-    d1 = rng.normal(size=(B1, 3)).astype(np.float32)
-    d1 = torch.from_numpy(d1 / np.linalg.norm(d1, axis=1, keepdims=True))
-    t_k = torch.from_numpy(rng.uniform(0, 50, B1).astype(np.float32))
-    prim = torch.from_numpy(rng.integers(-1, P, B1, dtype=np.int32))
-    inst = torch.from_numpy(rng.integers(-1, I, B1, dtype=np.int32))
-    k1_in = (o1, d1, t_k, prim, inst)
+    k1_in = winner_ids(cs_cpu, rng, B1)
+    prim, inst = k1_in[3], k1_in[4]
     want = hr.hitrec_record(cs_cpu.tri_wide, cs_cpu.inst_wide, *k1_in, True)
     tw, iw = cs_cpu.tri_wide.cuda(), cs_cpu.inst_wide.cuda()
     k1_dev = [x.cuda() for x in k1_in]
@@ -250,9 +355,10 @@ def phase_golden(torch) -> None:
             fail(f"golden {name}")
 
 
-def profile_frame(torch, cscene, spp: int) -> dict:
+def profile_frame(torch, cscene, spp: int, kernels=()) -> dict:
     """One frame under torch.profiler: device time per kernel name (ms),
-    the whole device time and the frame's wall time."""
+    the whole device time, the frame's wall time, and for each name in
+    `kernels` the device time of each of its launches (ms), in order."""
     from torch.profiler import ProfilerActivity, profile
     from craytpu_torch.models.wavefront_pt import WavefrontRenderer
     ren = WavefrontRenderer(cscene)
@@ -263,6 +369,13 @@ def profile_frame(torch, cscene, spp: int) -> dict:
         ren.render(spp)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: [] for k in kernels}
+    for ev in prof.events():
+        for k in kernels:
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and k in ev.name:
+                launches[k].append((ev.time_range.start,
+                                    ev.device_time_total / 1e3))
     by_name = {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -272,39 +385,22 @@ def profile_frame(torch, cscene, spp: int) -> dict:
         name, n = by_name.get(ev.key, (0.0, 0))
         by_name[ev.key] = (name + t_us / 1e3, n + ev.count)
     return {"by_name": by_name, "wall_ms": wall_ms,
-            "device_ms": sum(v[0] for v in by_name.values())}
+            "device_ms": sum(v[0] for v in by_name.values()),
+            "launches": {k: [ms for _, ms in sorted(v)]
+                         for k, v in launches.items()}}
 
 
 def phase_render(torch, kernels: dict) -> None:
-    from craytpu_torch.api import Renderer
     from craytpu_torch.ops import hitrec as hr
     from craytpu_torch.ops import traverse as trv
 
-    W, H, SPP = 1920, 1080, 4
-    r = Renderer(overrides={"width": W, "height": H, "samples": 1})
-    if not r.load_scene_from_file(os.path.join(REPO, "assets",
-                                               "stress_highpoly.json")):
-        fail("stress_highpoly.json did not load")
+    r = main_path_renderer(torch)
     r.set_output_path(os.path.join(REPO, "build", "chip_smoke") + "/")
-    t0 = time.perf_counter()
-    r.start_renderer()                       # warm-up pass (1 spp)
-    torch.cuda.synchronize()
-    print(f"warm-up pass: {time.perf_counter() - t0:.2f} s", flush=True)
-
-    r.set_sample_count(SPP)
-    marks = []
-
-    def progress(p, spp, accum):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
-    torch.cuda.reset_peak_memory_stats()
     trv.closest_hit.launches = 0
     hr.hitrec_record.launches = 0
-    r.start_renderer(progress)
+    paths_s, peak = timed_frame(torch, r)
     n_k2, n_k1 = trv.closest_hit.launches, hr.hitrec_record.launches
     path = r.write_image()
-    peak = torch.cuda.max_memory_allocated()
     if n_k2 == 0 or n_k1 == 0:
         fail(f"main path launched closest_hit {n_k2}x, hitrec {n_k1}x")
     kernels["closest_hit"]["launches"] = n_k2
@@ -314,7 +410,6 @@ def phase_render(torch, kernels: dict) -> None:
         fail(f"frame: shape {fb.shape}, finite={np.isfinite(fb).all()}")
     if not fb[..., :3].max() > 0.0:
         fail("frame is black")
-    paths_s = W * H * (SPP - 1) / (marks[-1] - marks[0])
     print(f"render stress_highpoly {W}x{H} {SPP}spp "
           f"bounces={r.bounces()}: frame {r.render_time_ms / 1e3:.2f} s "
           f"(scene compile included), {paths_s:.0f} paths/s over passes "
@@ -322,21 +417,34 @@ def phase_render(torch, kernels: dict) -> None:
           f"peak device memory {peak / 2**30:.2f} GiB; wrote {path}",
           flush=True)
     # kernel time per frame: CUDA events around each launch of one more
-    # frame, then a profiled frame for the whole device-time breakdown
+    # frame (launch gaps included), then a profiled frame for the device
+    # time of each launch (by batch size, from the launches' order) and
+    # the whole device-time breakdown
     from craytpu_torch.models.wavefront_pt import WavefrontRenderer
     from craytpu_torch.ops import cuda_build
+    names = {"closest_hit": "closest_hit_kernel", "hitrec": "hitrec_kernel"}
     with cuda_build.launch_timing() as times:
         WavefrontRenderer(r.compiled).render(SPP)
-    prof = profile_frame(torch, r.compiled, SPP)
+    with cuda_build.launch_timing() as sizes:
+        prof = profile_frame(torch, r.compiled, SPP, names.values())
     by_name = prof["by_name"]
-    for k, name in (("closest_hit_kernel", "closest_hit"),
-                    ("hitrec_kernel", "hitrec")):
+    for name, k in names.items():
         ev = times.get(name, [])
-        hits = [v for key, v in by_name.items() if k in key]
-        prof_ms = (f"{sum(v[0] for v in hits):.2f} ms" if hits
-                   else "not measured")
-        print(f"  {name}: per frame {len(ev)} launches, {sum(ev):.2f} ms "
-              f"(CUDA events; profiler: {prof_ms})", flush=True)
+        dev = prof["launches"][k]
+        total = [ms for key, (ms, _) in by_name.items() if k in key]
+        prof_ms = f"{sum(total):.2f} ms" if total else "not measured"
+        print(f"  {name}: per frame {len(ev)} launches, "
+              f"{sum(ms for _, ms in ev):.2f} ms (CUDA events; profiler: "
+              f"{prof_ms}); device time per launch by batch size "
+              f"(profiler):", flush=True)
+        by_size: dict = {}
+        for (size, _), ms in zip(sizes.get(name, []), dev):
+            by_size.setdefault(size, []).append(ms)
+        for size in sorted(by_size, reverse=True):
+            v = by_size[size]
+            print(f"    B={size:8d}: {len(v):3d}x, mean {sum(v) / len(v):.4f}"
+                  f" ms, min {min(v):.4f}, max {max(v):.4f}, sum "
+                  f"{sum(v):.3f}", flush=True)
     print(f"profiled frame: wall {prof['wall_ms']:.1f} ms, device busy "
           f"{prof['device_ms']:.1f} ms "
           f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%; "
@@ -364,6 +472,8 @@ def main() -> int:
     setup_torch()
     secs = cuda_build.build_all()
     print(f"build: {secs:.1f} s -> {cuda_build.BUILD_DIR}", flush=True)
+    for line in cuda_build.usage_lines():
+        print(f"  {line}", flush=True)
     kernels = phase_kernels(torch)
     phase_golden(torch)
     phase_render(torch, kernels)

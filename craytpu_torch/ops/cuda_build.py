@@ -4,9 +4,11 @@ Each kernel source is compiled by nvcc into its own shared library with a
 plain C interface and loaded with ctypes. Libraries go to
 build/craytpu_torch/ at the repository root, named by a hash of the
 sources and flags, and are built at first use; `build_all` starts one
-nvcc per source at once. A failed build raises. Nothing is built when a
-module is imported: the CPU tests import every module on a machine that
-has no nvcc.
+nvcc per source at once. A failed build raises. nvcc runs with
+`-Xptxas -v`; its log is kept beside the library (`<lib>.log`), and
+`kernel_usage` reads each kernel's registers, stack frame and spills
+from it. Nothing is built when a module is imported: the CPU tests
+import every module on a machine that has no nvcc.
 
 Flags: sm_90a (Hopper), and IEEE float arithmetic that the plain
 versions reproduce bit for bit: -fmad=false (no contraction of a*b+c into
@@ -20,6 +22,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,21 +33,25 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "craytpu_torch")
 KERNELS = ("closest_hit", "hitrec")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-         "-shared", "-Xcompiler", "-fPIC"]
+         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
+# loaded libraries by kernel name: a launch looks its library up here
+# without hashing the sources again
 _LIBS: dict[str, ctypes.CDLL] = {}
-# kernel name -> [(start, end) CUDA events], while launch_timing() is on
+# kernel name -> [(batch size, (start, end) CUDA events)], while
+# launch_timing() is on
 _TIMING: dict | None = None
 
 
-def nvcc() -> str:
+def nvcc(tool: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", tool)
     if os.path.exists(path):
         return path
-    found = shutil.which("nvcc")
+    found = shutil.which(tool)
     if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME or PATH): the CUDA "
+        raise RuntimeError(f"{tool} not found (CUDA_HOME or PATH): the CUDA "
                            "kernels cannot be built on this machine")
     return found
 
@@ -82,6 +89,8 @@ def _finish(name: str, job) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n"
                            f"{log.decode(errors='replace')}")
+    with open(f"{out}.log", "wb") as f:
+        f.write(log)
     os.replace(tmp, out)
 
 
@@ -94,6 +103,69 @@ def build_all(names=KERNELS) -> float:
         if job is not None:
             _finish(n, job)
     return time.perf_counter() - t0
+
+
+def kernel_usage(name: str) -> dict:
+    """Per __global__ function of kernel library `name` (built first if
+    missing), what ptxas reported: {"registers", "stack_bytes",
+    "spill_stores", "spill_loads", "smem_bytes"}, and "sass", the
+    number of machine instructions in the built function. Keyed by the
+    mangled function name."""
+    build_all((name,))
+    with open(f"{lib_path(name)}.log", errors="replace") as f:
+        log = f.read()
+    usage: dict = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^'\s]+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            usage.setdefault(fn, {}).update(
+                stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage.setdefault(fn, {}).update(
+                registers=int(m.group(1)),
+                smem_bytes=int(smem.group(1)) if smem else 0)
+    # static SASS instruction count of each function (cuobjdump -sass)
+    sass = subprocess.run([nvcc("cuobjdump"), "-sass", lib_path(name)],
+                          capture_output=True, text=True)
+    fn = None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S",
+                                         line):
+            u = usage.setdefault(fn, {})
+            u["sass"] = u.get("sass", 0) + 1
+    return usage
+
+
+def usage_lines(names=KERNELS) -> list[str]:
+    """One line per kernel: registers, stack frame, spills, shared
+    memory, SASS instructions."""
+    lines = []
+    for name in names:
+        for fn, u in kernel_usage(name).items():
+            if f"{name}_kernel" not in fn:
+                continue
+            lines.append(
+                f"ptxas {name}_kernel: {u.get('registers')} registers, "
+                f"{u.get('stack_bytes')} B stack frame, "
+                f"{u.get('spill_stores')} B spill stores, "
+                f"{u.get('spill_loads')} B spill loads, "
+                f"{u.get('smem_bytes')} B shared, "
+                f"{u.get('sass')} SASS instructions (static)")
+    return lines
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -115,20 +187,24 @@ def function(lib: str, symbol: str, signature: str):
     return fn
 
 
-def check_tensor(t, name: str, dtype, shape=None) -> None:
-    """Raise unless t is a contiguous CUDA tensor of dtype (and shape)."""
+def check_tensor(t, name: str, dtype, shape=None, align: int = 1) -> None:
+    """Raise unless t is a contiguous CUDA tensor of dtype (and shape)
+    whose data starts on an `align`-byte boundary (for vector loads)."""
     if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, "
                          f"got {t.device} {t.dtype} "
                          f"contiguous={t.is_contiguous()}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data not {align}-byte aligned")
 
 
-def launch(name: str, fn, *args) -> None:
+def launch(name: str, fn, *args, size: int) -> None:
     """Call a kernel's C entry point and raise if it returned a CUDA error
     (its cudaGetLastError after the launch). Under launch_timing(), CUDA
-    events are recorded on the current stream around the launch."""
+    events are recorded on the current stream around the launch, filed
+    with its batch `size`."""
     if _TIMING is not None:
         import torch
         ev = (torch.cuda.Event(enable_timing=True),
@@ -137,7 +213,7 @@ def launch(name: str, fn, *args) -> None:
     err = fn(*args)
     if _TIMING is not None:
         ev[1].record()
-        _TIMING.setdefault(name, []).append(ev)
+        _TIMING.setdefault(name, []).append((size, ev))
     if err != 0:
         msg = library(name).craytpu_error_string
         msg.restype = ctypes.c_char_p
@@ -150,7 +226,7 @@ def launch(name: str, fn, *args) -> None:
 def launch_timing():
     """Time every kernel launch in the block with CUDA events. Yields a
     dict that, after the block (which synchronizes), maps each kernel
-    name to the list of its launch times in ms."""
+    name to the list of its launches as (batch size, ms)."""
     global _TIMING
     import torch
     _TIMING = {}
@@ -159,6 +235,28 @@ def launch_timing():
         yield times
         torch.cuda.synchronize()
         for name, evs in _TIMING.items():
-            times[name] = [a.elapsed_time(b) for a, b in evs]
+            times[name] = [(n, a.elapsed_time(b)) for n, (a, b) in evs]
     finally:
         _TIMING = None
+
+
+def main(argv=None) -> int:
+    """Build the kernels and print what ptxas reported for each.
+
+        python -m craytpu_torch.ops.cuda_build [--csrc DIR]
+
+    DIR: another checkout's kernel sources (e.g. an earlier commit's
+    craytpu_torch/csrc), built with these flags."""
+    import argparse
+    global CSRC
+    ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    ap.add_argument("--csrc", default=CSRC)
+    CSRC = os.path.abspath(ap.parse_args(argv).csrc)
+    print(f"build: {build_all():.1f} s, sources {CSRC}", flush=True)
+    for line in usage_lines():
+        print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

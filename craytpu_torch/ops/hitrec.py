@@ -129,20 +129,25 @@ def hitrec_record(tri_wide, inst_wide, o_w, d_w, t_k, prim, inst,
                             sphere_uv)
     B = o_w.shape[0]
     check = cuda_build.check_tensor
-    check(tri_wide, "tri_wide", torch.float32, (tri_wide.shape[0], 32))
-    check(inst_wide, "inst_wide", torch.float32, (inst_wide.shape[0], 28))
+    # the kernel reads the rows with 16-byte loads
+    check(tri_wide, "tri_wide", torch.float32, (tri_wide.shape[0], 32),
+          align=16)
+    check(inst_wide, "inst_wide", torch.float32, (inst_wide.shape[0], 28),
+          align=16)
     check(o_w, "o_w", torch.float32, (B, 3))
     check(d_w, "d_w", torch.float32, (B, 3))
     check(t_k, "t_k", torch.float32, (B,))
     check(prim, "prim", torch.int32, (B,))
     check(inst, "inst", torch.int32, (B,))
     out = torch.empty((B, N_OUT), dtype=torch.float32, device=o_w.device)
+    if B == 0:
+        return out
     fn = cuda_build.function("hitrec", "craytpu_hitrec", "pppppppiipp")
     cuda_build.launch(
         "hitrec", fn, tri_wide.data_ptr(), inst_wide.data_ptr(),
         o_w.data_ptr(), d_w.data_ptr(), t_k.data_ptr(), prim.data_ptr(),
         inst.data_ptr(), B, int(bool(sphere_uv)), out.data_ptr(),
-        torch.cuda.current_stream(o_w.device).cuda_stream)
+        torch.cuda.current_stream(o_w.device).cuda_stream, size=B)
     hitrec_record.launches += 1
     return out
 
@@ -193,13 +198,16 @@ def make_hitrec_fn(tri_wide, inst_wide, sphere_uv: bool):
 def make_isect_fn(cscene):
     """Closest hit (K2) then hit-record resolve (K1):
     isect(geom, o_w, d_w, alive) -> (is_hit, p_w, n_w, uv, mat_id, t).
-    Each kernel's wrapper picks its plain version for CPU tensors."""
+    Each kernel's wrapper picks its plain version for CPU tensors. K2
+    reads the scene's KernelLayout, built once per scene at the first
+    launch on the card (a CPU run never builds it)."""
     hitrec = make_hitrec_fn(cscene.tri_wide, cscene.inst_wide,
                             cscene.sphere_uv)
 
     def isect(geom, o_w, d_w, alive):
         limit = torch.where(alive, FLT_MAX, 0.0)
+        layout = cscene.layout if o_w.device.type == "cuda" else None
         hit = trv.closest_hit(geom, o_w, d_w, limit, cscene.tlas_end,
-                              cscene.stack_depth)
+                              cscene.stack_depth, layout)
         return hitrec(o_w, d_w, hit.t, hit.prim, hit.inst)[:6]
     return isect

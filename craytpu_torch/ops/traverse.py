@@ -22,10 +22,14 @@ share, bit for bit):
 `closest_hit` is the dispatching wrapper: tensors on the CPU go to the
 plain version (`traverse_plain`), CUDA tensors to the hand-written kernel
 (csrc/closest_hit.cu), which replaces the JAX package's Pallas flash2
-search (craytpu/ops/flash2.py::_kernel).
+search (craytpu/ops/flash2.py::_kernel). The kernel reads the scene
+through `KernelLayout` tables (`build_layout`), built once per scene from
+`Geometry` alone (`CompiledScene.layout`).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -57,6 +61,49 @@ def space_ray(geom: Geometry, inst, o_w, d_w):
                           o_w, d_w)
     is_obj = (inst >= 0)[..., None]
     return torch.where(is_obj, o_t, o_w), torch.where(is_obj, d_t, d_w)
+
+
+@dataclass
+class KernelLayout:
+    """K2's copy of the scene, laid out for 16-byte loads. Derived from
+    `Geometry` alone; the walk it serves is traverse_plain's.
+
+      node_rec (M, 16) f32: for inner node n (node_count <= 0), with
+        left = min(node_child[n], M-1) and right = min(left+1, M-1):
+        [node_bounds[left] (6), node_bounds[right] (6),
+         node_child[left], node_count[left], node_child[right],
+         node_count[right]] -- the last four are int32 bits. Leaf rows 0.
+      tri_leaf (Q, 12) f32: tri_packed[prim_idx[q]] for every slot q of a
+        BLAS leaf (node >= tlas_end), so a leaf's triangles are
+        consecutive rows; 0 for TLAS slots (those hold instance ids).
+    """
+    node_rec: torch.Tensor
+    tri_leaf: torch.Tensor
+
+
+def build_layout(geom: Geometry, tlas_end: int) -> KernelLayout:
+    """K2's tables, on the device of `geom`."""
+    M = geom.node_bounds.shape[0]
+    child = geom.node_child.long()
+    count = geom.node_count.long()
+    left = torch.clamp_max(child, M - 1)
+    right = torch.clamp_max(left + 1, M - 1)
+    rec = torch.cat([geom.node_bounds[left], geom.node_bounds[right]], 1)
+    words = torch.stack([child[left], count[left], child[right],
+                         count[right]], 1).to(torch.int32)
+    rec = torch.cat([rec, words.view(torch.float32)], 1)
+    rec = torch.where((count <= 0)[:, None], rec, 0.0).contiguous()
+
+    blas_leaf = (count > 0) & (torch.arange(M, device=child.device)
+                               >= tlas_end)
+    rows, cnts = child[blas_leaf], count[blas_leaf]
+    starts = torch.repeat_interleave(rows, cnts)
+    first = torch.repeat_interleave(torch.cumsum(cnts, 0) - cnts, cnts)
+    slots = starts + torch.arange(starts.shape[0], device=child.device) \
+        - first
+    tri_leaf = geom.tri_packed.new_zeros((geom.prim_idx.shape[0], 12))
+    tri_leaf[slots] = geom.tri_packed[geom.prim_idx[slots].long()]
+    return KernelLayout(node_rec=rec, tri_leaf=tri_leaf)
 
 
 def new_counts() -> dict:
@@ -203,42 +250,51 @@ def traverse_plain(geom: Geometry, o_w, d_w, limit, tlas_end: int,
 
 
 def closest_hit(geom: Geometry, o_w, d_w, limit, tlas_end: int,
-                stack_depth: int) -> Hit:
+                stack_depth: int, layout: KernelLayout | None = None) -> Hit:
     """Closest hit of each ray (o_w, d_w (B, 3)) under its limit (B,).
 
-    CPU tensors: the plain version. CUDA tensors: the K2 kernel, or an
-    error. Returns Hit(t f32, prim i32 (-1 sphere), inst i32 (-1 miss))."""
+    CPU tensors: the plain version (`layout` unused). CUDA tensors: the
+    K2 kernel, which reads `layout` (build_layout(geom, tlas_end), built
+    once per scene), or an error. Returns Hit(t f32, prim i32 (-1
+    sphere), inst i32 (-1 miss))."""
     if o_w.device.type == "cpu":
         return traverse_plain(geom, o_w, d_w, limit, tlas_end, stack_depth)
     if stack_depth > KERNEL_MAX_STACK:
         raise ValueError(f"scene needs a {stack_depth}-entry stack; the "
                          f"closest-hit kernel holds {KERNEL_MAX_STACK}")
+    if layout is None:
+        raise ValueError("the closest-hit kernel needs the scene's "
+                         "KernelLayout (build_layout)")
     B = o_w.shape[0]
+    M, Q = geom.node_bounds.shape[0], geom.prim_idx.shape[0]
     check = cuda_build.check_tensor
     check(o_w, "o_w", torch.float32, (B, 3))
     check(d_w, "d_w", torch.float32, (B, 3))
     check(limit, "limit", torch.float32, (B,))
+    check(layout.node_rec, "node_rec", torch.float32, (M, 16), align=16)
+    check(layout.tri_leaf, "tri_leaf", torch.float32, (Q, 12), align=16)
     g = geom
-    for name in ("node_bounds", "tri_packed", "inst_Ainv", "inst_offset",
-                 "sph_radius"):
+    for name in ("inst_Ainv", "inst_offset", "sph_radius"):
         check(getattr(g, name), name, torch.float32)
     for name in ("node_child", "node_count", "prim_idx", "inst_kind",
                  "inst_obj", "blas_root"):
         check(getattr(g, name), name, torch.int32)
-    t = torch.empty(B, dtype=torch.float32, device=o_w.device)
-    prim = torch.empty(B, dtype=torch.int32, device=o_w.device)
-    inst = torch.empty(B, dtype=torch.int32, device=o_w.device)
+    dev = o_w.device
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    prim = torch.empty(B, dtype=torch.int32, device=dev)
+    inst = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return Hit(t=t, prim=prim, inst=inst)
     fn = cuda_build.function("closest_hit", "craytpu_closest_hit",
                             "pppi" + "p" * 11 + "iii" + "ppp" + "p")
-    tables = (g.node_bounds, g.node_child, g.node_count, g.prim_idx,
-              g.tri_packed, g.inst_Ainv, g.inst_kind, g.inst_obj,
+    tables = (layout.node_rec, layout.tri_leaf, g.node_child, g.node_count,
+              g.prim_idx, g.inst_Ainv, g.inst_kind, g.inst_obj,
               g.inst_offset, g.blas_root, g.sph_radius)
     cuda_build.launch(
         "closest_hit", fn, o_w.data_ptr(), d_w.data_ptr(), limit.data_ptr(),
-        B, *(x.data_ptr() for x in tables), int(tlas_end),
-        int(g.node_bounds.shape[0]), int(stack_depth), t.data_ptr(),
-        prim.data_ptr(), inst.data_ptr(),
-        torch.cuda.current_stream(o_w.device).cuda_stream)
+        B, *(x.data_ptr() for x in tables), int(tlas_end), M,
+        int(stack_depth), t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, size=B)
     closest_hit.launches += 1
     return Hit(t=t, prim=prim, inst=inst)
 

@@ -5,18 +5,21 @@ Flattens all per-mesh BVHs and the TLAS into unified global node arrays
 instances and spheres, builds the global material table, dedups material
 node graphs (the hash-consing analogue), prepares the ShadeParams tables
 and the denormalized hit-record rows (tri_wide, inst_wide) that the
-hit-record kernel gathers from.
+hit-record kernel gathers from. The closest-hit kernel's own tables
+(`CompiledScene.layout`) are built from the geometry at first use.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from functools import cached_property
 from typing import Any
 
 import numpy as np
 import torch
 
 from craytpu_torch.ops import shading
+from craytpu_torch.ops import traverse as trv
 from craytpu_torch.ops.camera import CameraHost, make_camera_ray_fn
 from craytpu_torch.ops.hitrec import build_wide_rows
 from craytpu_torch.scene.device import (Geometry, ShadeGeom, INST_MESH,
@@ -48,6 +51,12 @@ class CompiledScene:
     inst_wide: torch.Tensor       # (I, 28) f32 hit-record instance rows
     sphere_uv: bool               # does any sphere material read uv?
     device: torch.device
+
+    @cached_property
+    def layout(self) -> trv.KernelLayout:
+        """The closest-hit kernel's tables, built from `geom` on the
+        scene's device at first use, once per scene."""
+        return trv.build_layout(self.geom, self.tlas_end)
 
     def bsdf_fns(self, kind: str):
         return [shading.compile_bsdf(g, self.reg, kind) for g in self.graphs]

@@ -16,6 +16,7 @@ from craytpu_torch.ops import cuda_build
 from craytpu_torch.ops import hitrec as hr
 from craytpu_torch.ops import traverse as trv
 from craytpu_torch.scene.compile import compile_scene
+from craytpu_torch.scene.device import INST_SPHERE
 from craytpu_torch.scene.sceneloader import load_scene_from_file
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
@@ -51,22 +52,83 @@ def rays(cs, B, seed):
     return torch.from_numpy(o), torch.from_numpy(d)
 
 
+def on_card(cs):
+    """The scene's geometry and K2 layout on the card."""
+    geom = cs.geom.to("cuda")
+    return geom, trv.build_layout(geom, cs.tlas_end)
+
+
+def check_closest_hit(cs, o, d, limit, stack_depth):
+    """K2 on the card against the plain version on the CPU, bit for bit;
+    returns the plain result."""
+    args = (cs.tlas_end, stack_depth)
+    want = trv.closest_hit(cs.geom, o, d, limit, *args)
+    geom, layout = on_card(cs)
+    got = trv.closest_hit(geom, o.cuda(), d.cuda(), limit.cuda(), *args,
+                          layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got.inst.cpu(), want.inst)
+    assert torch.equal(got.prim.cpu(), want.prim)
+    assert_bits(got.t, want.t, "t")
+    return want
+
+
 def test_closest_hit_kernel_matches_plain(scene):
     B = 8192
     o, d = rays(scene, B, 11)
     limit = torch.where(torch.arange(B) % 7 == 0, 0.0, trv.FLT_MAX)
     args = (scene.tlas_end, scene.stack_depth)
     want = trv.closest_hit(scene.geom, o, d, limit, *args)
+    geom, layout = on_card(scene)
     n = trv.closest_hit.launches
     with cuda_build.launch_timing() as times:
-        got = trv.closest_hit(scene.geom.to("cuda"), o.cuda(), d.cuda(),
-                              limit.cuda(), *args)
+        got = trv.closest_hit(geom, o.cuda(), d.cuda(), limit.cuda(), *args,
+                              layout)
     assert trv.closest_hit.launches == n + 1
-    assert len(times["closest_hit"]) == 1 and times["closest_hit"][0] > 0
+    assert len(times["closest_hit"]) == 1
+    assert times["closest_hit"][0][0] == B and times["closest_hit"][0][1] > 0
     assert (want.inst >= 0).any()
     assert torch.equal(got.inst.cpu(), want.inst)
     assert torch.equal(got.prim.cpu(), want.prim)
     assert_bits(got.t, want.t, "t")
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8])
+def test_closest_hit_kernel_drops_pushes_as_plain(scene, depth):
+    """A small stack: pushes are dropped, in both versions alike."""
+    o, d = rays(scene, 4096, 12)
+    limit = torch.full((4096,), trv.FLT_MAX)
+    shallow = check_closest_hit(scene, o, d, limit, depth)
+    deep = trv.closest_hit(scene.geom, o, d, limit, scene.tlas_end,
+                           scene.stack_depth)
+    if depth < 8 and scene.geom.node_bounds.shape[0] > 100:
+        # stress_instances: the dropped pushes change some winners
+        assert not torch.equal(shallow.inst, deep.inst)
+
+
+@pytest.mark.parametrize("B", [0, 1, 127, 129, 65539])
+def test_closest_hit_kernel_ragged_batches(scene, B):
+    o, d = rays(scene, B, 13)
+    limit = torch.where(torch.arange(B) % 5 == 3, 0.0, trv.FLT_MAX)
+    n = trv.closest_hit.launches
+    want = check_closest_hit(scene, o, d, limit, scene.stack_depth)
+    assert want.t.shape == (B,)
+    assert trv.closest_hit.launches == n + (B > 0)
+
+
+def test_closest_hit_kernel_all_dead(scene):
+    o, d = rays(scene, 1000, 14)
+    want = check_closest_hit(scene, o, d, torch.zeros(1000),
+                             scene.stack_depth)
+    assert (want.inst == -1).all() and (want.prim == -1).all()
+
+
+def check_hitrec(cs, args, sphere_uv):
+    want = hr.hitrec_record(cs.tri_wide, cs.inst_wide, *args, sphere_uv)
+    got = hr.hitrec_record(cs.tri_wide.cuda(), cs.inst_wide.cuda(),
+                           *[a.cuda() for a in args], sphere_uv)
+    torch.cuda.synchronize()
+    assert_bits(got, want, "record")
 
 
 @pytest.mark.parametrize("sphere_uv", [False, True])
@@ -88,12 +150,37 @@ def test_hitrec_kernel_matches_plain(scene, sphere_uv):
     assert_bits(got, want, "record")
 
 
+@pytest.mark.parametrize("ids", ["misses", "spheres"])
+def test_hitrec_kernel_special_ids(scene, ids):
+    """Every id -1 (all misses), or only sphere winners (prim -1)."""
+    B = 1000  # a ragged last warp
+    rng = np.random.default_rng(6)
+    o, d = rays(scene, B, 6)
+    t_k = torch.from_numpy(rng.uniform(0, 20, B).astype(np.float32))
+    prim = torch.full((B,), -1, dtype=torch.int32)
+    if ids == "misses":
+        inst = torch.full((B,), -1, dtype=torch.int32)
+    else:
+        sph = torch.nonzero(scene.geom.inst_kind == INST_SPHERE).squeeze(1)
+        assert sph.numel() > 0
+        inst = sph[torch.from_numpy(rng.integers(0, sph.numel(), B))]
+        inst = inst.to(torch.int32)
+    for sphere_uv in (False, True):
+        check_hitrec(scene, (o, d, t_k, prim, inst), sphere_uv)
+
+
 def test_kernels_refuse_bad_input(scene):
     o, d = rays(scene, 64, 1)
     limit = torch.full((64,), trv.FLT_MAX, device="cuda")
+    geom, layout = on_card(scene)
     with pytest.raises(ValueError):
-        trv.closest_hit(scene.geom.to("cuda"), o.double().cuda(), d.cuda(),
-                        limit, scene.tlas_end, scene.stack_depth)
+        trv.closest_hit(geom, o.double().cuda(), d.cuda(), limit,
+                        scene.tlas_end, scene.stack_depth, layout)
     with pytest.raises(ValueError):
-        trv.closest_hit(scene.geom.to("cuda"), o.cuda(), d.cuda(), limit,
-                        scene.tlas_end, trv.KERNEL_MAX_STACK + 1)
+        trv.closest_hit(geom, o.cuda(), d.cuda(), limit, scene.tlas_end,
+                        trv.KERNEL_MAX_STACK + 1, layout)
+    with pytest.raises(ValueError):  # no layout
+        trv.closest_hit(geom, o.cuda(), d.cuda(), limit, scene.tlas_end,
+                        scene.stack_depth)
+    # every stack depth up to the kernel's is taken
+    check_closest_hit(scene, o, d, limit.cpu(), trv.KERNEL_MAX_STACK)
