@@ -31,6 +31,20 @@ Phases (any failure exits non-zero and prints no result line):
                per frame (CUDA events around each launch), its time per
                launch grouped by batch size, and the frame's device-time
                breakdown (torch.profiler).
+  5. persistent — the CLI's path (make_renderer -> render_persistent):
+               both stress goldens at 80x50, 4 spp; an interrupt at the
+               3rd poll, a checkpoint on disk and a resume at 96x64 on
+               assets/entry_scene.json against the uninterrupted render
+               (rtol=2e-5, atol=2e-6); `python3 -m craytpu_torch
+               assets/stress_highpoly.json -s 4 -d 1920x1080` as a
+               subprocess (exit 0, a 1920x1080 PNG under build/); one
+               persistent 1080p frame with the launch counters set to 0
+               just before and read just after (both kernels must have
+               launched), its pool steps, refills, shrinks and peak
+               device memory; paths/s of per-pass and persistent frames
+               taken in turns (per-pass, persistent, persistent,
+               per-pass, three rounds: median and range); and the same
+               kernel-time breakdown as phase 4 for a persistent frame.
 Then one line {"kernels": [...]} and, last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
@@ -355,18 +369,17 @@ def phase_golden(torch) -> None:
             fail(f"golden {name}")
 
 
-def profile_frame(torch, cscene, spp: int, kernels=()) -> dict:
-    """One frame under torch.profiler: device time per kernel name (ms),
-    the whole device time, the frame's wall time, and for each name in
-    `kernels` the device time of each of its launches (ms), in order."""
+def profile_frame(torch, frame, kernels=()) -> dict:
+    """One call of frame() under torch.profiler: device time per kernel
+    name (ms), the whole device time, the frame's wall time, and for each
+    name in `kernels` the device time of each of its launches (ms), in
+    order."""
     from torch.profiler import ProfilerActivity, profile
-    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
-    ren = WavefrontRenderer(cscene)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ren.render(spp)
+        frame()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: [] for k in kernels}
@@ -388,6 +401,47 @@ def profile_frame(torch, cscene, spp: int, kernels=()) -> dict:
             "device_ms": sum(v[0] for v in by_name.values()),
             "launches": {k: [ms for _, ms in sorted(v)]
                          for k, v in launches.items()}}
+
+
+KERNEL_NAMES = {"closest_hit": "closest_hit_kernel",
+                "hitrec": "hitrec_kernel"}
+
+
+def print_frame_profile(torch, frame) -> None:
+    """Each kernel's launches and time over one frame() (CUDA events
+    around each launch, launch gaps included), then a profiled frame():
+    the device time of each launch by batch size (from the launches'
+    order) and the whole device-time breakdown."""
+    from craytpu_torch.ops import cuda_build
+    with cuda_build.launch_timing() as times:
+        frame()
+    with cuda_build.launch_timing() as sizes:
+        prof = profile_frame(torch, frame, KERNEL_NAMES.values())
+    by_name = prof["by_name"]
+    for name, k in KERNEL_NAMES.items():
+        ev = times.get(name, [])
+        dev = prof["launches"][k]
+        total = [ms for key, (ms, _) in by_name.items() if k in key]
+        prof_ms = f"{sum(total):.2f} ms" if total else "not measured"
+        print(f"  {name}: per frame {len(ev)} launches, "
+              f"{sum(ms for _, ms in ev):.2f} ms (CUDA events; profiler: "
+              f"{prof_ms}); device time per launch by batch size "
+              f"(profiler):", flush=True)
+        by_size: dict = {}
+        for (size, _), ms in zip(sizes.get(name, []), dev):
+            by_size.setdefault(size, []).append(ms)
+        for size in sorted(by_size, reverse=True):
+            v = by_size[size]
+            print(f"    B={size:8d}: {len(v):3d}x, mean {sum(v) / len(v):.4f}"
+                  f" ms, min {min(v):.4f}, max {max(v):.4f}, sum "
+                  f"{sum(v):.3f}", flush=True)
+    print(f"profiled frame: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms "
+          f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%; "
+          f"{len(by_name)} kernel names); top device kernels:", flush=True)
+    for key, (ms, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {ms:9.2f} ms {n:6d}x  {key[:90]}", flush=True)
 
 
 def phase_render(torch, kernels: dict) -> None:
@@ -416,42 +470,176 @@ def phase_render(torch, kernels: dict) -> None:
           f"2-{SPP}; launches per frame: closest_hit {n_k2}, hitrec {n_k1}; "
           f"peak device memory {peak / 2**30:.2f} GiB; wrote {path}",
           flush=True)
-    # kernel time per frame: CUDA events around each launch of one more
-    # frame (launch gaps included), then a profiled frame for the device
-    # time of each launch (by batch size, from the launches' order) and
-    # the whole device-time breakdown
     from craytpu_torch.models.wavefront_pt import WavefrontRenderer
-    from craytpu_torch.ops import cuda_build
-    names = {"closest_hit": "closest_hit_kernel", "hitrec": "hitrec_kernel"}
-    with cuda_build.launch_timing() as times:
-        WavefrontRenderer(r.compiled).render(SPP)
-    with cuda_build.launch_timing() as sizes:
-        prof = profile_frame(torch, r.compiled, SPP, names.values())
-    by_name = prof["by_name"]
-    for name, k in names.items():
-        ev = times.get(name, [])
-        dev = prof["launches"][k]
-        total = [ms for key, (ms, _) in by_name.items() if k in key]
-        prof_ms = f"{sum(total):.2f} ms" if total else "not measured"
-        print(f"  {name}: per frame {len(ev)} launches, "
-              f"{sum(ms for _, ms in ev):.2f} ms (CUDA events; profiler: "
-              f"{prof_ms}); device time per launch by batch size "
-              f"(profiler):", flush=True)
-        by_size: dict = {}
-        for (size, _), ms in zip(sizes.get(name, []), dev):
-            by_size.setdefault(size, []).append(ms)
-        for size in sorted(by_size, reverse=True):
-            v = by_size[size]
-            print(f"    B={size:8d}: {len(v):3d}x, mean {sum(v) / len(v):.4f}"
-                  f" ms, min {min(v):.4f}, max {max(v):.4f}, sum "
-                  f"{sum(v):.3f}", flush=True)
-    print(f"profiled frame: wall {prof['wall_ms']:.1f} ms, device busy "
-          f"{prof['device_ms']:.1f} ms "
-          f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%; "
-          f"{len(by_name)} kernel names); top device kernels:", flush=True)
-    for key, (ms, n) in sorted(by_name.items(),
-                               key=lambda kv: -kv[1][0])[:12]:
-        print(f"    {ms:9.2f} ms {n:6d}x  {key[:90]}", flush=True)
+    ren = WavefrontRenderer(r.compiled)
+    print_frame_profile(torch, lambda: ren.render(SPP))
+
+
+def frame_per_pass(torch, ren) -> float:
+    """One per-pass frame of ren (render_pass x SPP, the frame kept on
+    the card): wall seconds to the last pass's end."""
+    t0 = time.perf_counter()
+    accum = torch.zeros((ren.height, ren.width, 4), device=ren.device)
+    for p in range(SPP):
+        accum = ren.render_pass(accum, p, SPP)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def frame_persistent(torch, ren) -> float:
+    """One persistent frame of ren (render_persistent, fetch=False):
+    wall seconds to its end."""
+    t0 = time.perf_counter()
+    ren.render_persistent(SPP, fetch=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def count_pool_calls(ren) -> dict:
+    """Count the pool steps, refills (device and host) and shrinks of ren
+    by wrapping its methods on the instance (del the attributes to stop)."""
+    calls = {"_pool_step": 0, "_flush_pack_refill": 0,
+             "_flush_pack_refill_host": 0, "_pack_shrink": 0}
+
+    def wrap(name):
+        fn = getattr(ren, name)
+
+        def counted(*a):
+            calls[name] += 1
+            return fn(*a)
+        setattr(ren, name, counted)
+    for name in calls:
+        wrap(name)
+    return calls
+
+
+def phase_persistent(torch, kernels: dict) -> None:
+    """Phase 5: the CLI's path, the persistent pool, on the card."""
+    from craytpu_torch.io.png import read_png_rgb
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    from craytpu_torch.runtime import checkpoint
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.utils import golden
+
+    # ---- both stress goldens through render_persistent
+    for name in ("stress_highpoly", "stress_instances"):
+        n_k2, n_k1 = trv.closest_hit.launches, hr.hitrec_record.launches
+        cs = compile_scene(load(name, {"width": 80, "height": 50,
+                                       "samples": 4}))
+        fb = make_renderer(cs).render_persistent(4)
+        if not (trv.closest_hit.launches > n_k2
+                and hr.hitrec_record.launches > n_k1):
+            fail(f"persistent golden {name}: the render did not go "
+                 "through the kernels")
+        ok, within, mean_abs = golden.compare(fb, name, 80, 50, 4)
+        print(f"persistent golden {name} 80x50 4spp: within1lsb="
+              f"{within:.5f} mean_abs={mean_abs:.4f} ok={ok}", flush=True)
+        if not ok:
+            fail(f"persistent golden {name}")
+
+    # ---- interrupt at the 3rd poll, checkpoint to disk, resume: equal to
+    # the uninterrupted render up to accumulation order (index_add_'s
+    # atomics), rtol=2e-5, atol=2e-6. k=1 keeps paths in flight.
+    os.environ["CRAYTPU_POOL_K"] = "1"
+    try:
+        r = WavefrontRenderer(compile_scene(load("entry_scene", {})),
+                              tile_rays=8192)
+        ref = r.render_persistent(3)
+        polls = []
+
+        def interrupt():
+            polls.append(1)
+            return len(polls) >= 3
+        out = r.render_persistent(3, interrupt=interrupt)
+        if not (isinstance(out, tuple) and out[0] == "interrupted"
+                and len(out[2]) > 0):
+            fail("persistent interrupt: no in-flight paths checkpointed")
+        path = os.path.join(REPO, "build", "chip_smoke", "entry.ckpt.npz")
+        checkpoint.save_persistent(path, out[1], out[2], out[3], 3,
+                                   (r.height, r.width))
+        resume, total, shape = checkpoint.load_persistent(path)
+        resumed = r.render_persistent(3, resume=resume)
+    finally:
+        del os.environ["CRAYTPU_POOL_K"]
+    err = float(np.max(np.abs(resumed - ref)))
+    print(f"persistent resume {r.width}x{r.height} 3spp: interrupted at "
+          f"poll 3 with {len(out[2])} paths in flight; resumed vs "
+          f"uninterrupted max |d| {err:.3e}", flush=True)
+    if not np.allclose(resumed, ref, rtol=2e-5, atol=2e-6):
+        fail("persistent resume differs from the uninterrupted render")
+
+    # ---- the CLI at full width, as a user runs it
+    cli_dir = os.path.join(REPO, "build", "chip_smoke", "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "craytpu_torch",
+           os.path.join(REPO, "assets", "stress_highpoly.json"), "-s",
+           str(SPP), "-d", f"{W}x{H}"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cli_dir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    png = os.path.join(cli_dir, "output", "stress_highpoly_0000.png")
+    if res.returncode != 0 or not os.path.exists(png):
+        fail(f"CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    img = read_png_rgb(png)
+    if img.shape != (H, W, 3) or not img.max() > 0:
+        fail(f"CLI image: shape {img.shape}, max {img.max()}")
+    done = [ln for ln in res.stdout.splitlines() if "Finished" in ln]
+    print(f"CLI {' '.join(cmd[2:])}: exit 0 in {cli_s:.1f} s (process "
+          f"start, scene load and kernel load included); "
+          f"{done[-1] if done else ''}; wrote {png} {img.shape}",
+          flush=True)
+
+    # ---- the persistent 1080p frame: launches, pool calls, peak memory
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    ren = make_renderer(cs)
+    frame_persistent(torch, ren)                     # warm-up
+    frame_per_pass(torch, ren)
+    calls = count_pool_calls(ren)
+    torch.cuda.reset_peak_memory_stats()
+    trv.closest_hit.launches = 0
+    hr.hitrec_record.launches = 0
+    fb = ren.render_persistent(SPP)
+    n_k2, n_k1 = trv.closest_hit.launches, hr.hitrec_record.launches
+    peak = torch.cuda.max_memory_allocated()
+    for name in calls:
+        delattr(ren, name)
+    if n_k2 == 0 or n_k1 == 0:
+        fail(f"persistent frame launched closest_hit {n_k2}x, hitrec "
+             f"{n_k1}x")
+    if fb.shape != (H, W, 4) or not np.isfinite(fb).all() \
+            or not fb[..., :3].max() > 0.0:
+        fail(f"persistent frame: shape {fb.shape}, finite="
+             f"{np.isfinite(fb).all()}")
+    kernels["closest_hit"]["launches_persistent"] = n_k2
+    kernels["hitrec"]["launches_persistent"] = n_k1
+    print(f"persistent frame stress_highpoly {W}x{H} {SPP}spp "
+          f"bounces={ren.max_depth} pool={ren.tile_rays}: "
+          f"launches closest_hit {n_k2}, hitrec {n_k1}; pool steps "
+          f"{calls['_pool_step']}, refills "
+          f"{calls['_flush_pack_refill'] + calls['_flush_pack_refill_host']}"
+          f", shrinks {calls['_pack_shrink']}; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+
+    # ---- paths/s in turns: per-pass, persistent, persistent, per-pass
+    rates = {"per-pass": [], "persistent": []}
+    for _ in range(3):
+        for kind in ("per-pass", "persistent", "persistent", "per-pass"):
+            fn = frame_per_pass if kind == "per-pass" else frame_persistent
+            rates[kind].append(W * H * SPP / fn(torch, ren))
+    for kind, v in rates.items():
+        print(f"paths/s {kind} frame (whole frame, {len(v)} frames in "
+              f"turns): median {float(np.median(v)):.0f}, range "
+              f"{min(v):.0f}-{max(v):.0f}; all "
+              f"{' '.join(f'{x:.0f}' for x in v)}", flush=True)
+    print_frame_profile(torch, lambda: ren.render_persistent(SPP,
+                                                             fetch=False))
 
 
 def main() -> int:
@@ -477,6 +665,7 @@ def main() -> int:
     kernels = phase_kernels(torch)
     phase_golden(torch)
     phase_render(torch, kernels)
+    phase_persistent(torch, kernels)
     print(json.dumps({"kernels": [kernels["closest_hit"],
                                   kernels["hitrec"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,20 @@
 """Wavefront Monte Carlo path tracer (the integrator), forward render.
 
-The whole frame is one SoA wavefront of rays advancing bounce by bounce,
-rendered in fixed-size ray batches ("tiles"). Each bounce: closest hit
-(the K2 kernel) -> hit-record resolve (the K1 kernel) -> background and
-emission -> node-graph shading -> Russian roulette. After every few
-bounces the survivors are sorted by a Morton/octant key and packed into a
-smaller power-of-four bucket; radiance scatter-adds back into the batch
-buffer by original lane id.
+Two ways through a frame, as in the JAX package:
+
+  - render / render_pass (per pass): the frame is one SoA wavefront of
+    rays advancing bounce by bounce, traced in fixed-size ray batches
+    ("tiles"). Each bounce: closest hit (the K2 kernel) -> hit-record
+    resolve (the K1 kernel) -> background and emission -> node-graph
+    shading -> Russian roulette. After every few bounces the survivors
+    are sorted by a Morton/octant key and packed into a smaller
+    power-of-four bucket; radiance scatter-adds back into the batch
+    buffer by original lane id.
+  - render_persistent (the CLI's path): one persistent pool of tile_rays
+    lanes. Dead lanes are replaced by fresh (pixel, pass) primaries from
+    a queue over the whole frame and every pass, so every step runs the
+    full pool across tile and pass boundaries. It can stop at an
+    interrupt and resume from a checkpoint (runtime/checkpoint.py).
 
 Per-(pixel, pass) semantics match the reference exactly:
   - sampler re-seeded per (pixel, pass): Random/PCG32 in batch mode
@@ -21,7 +29,8 @@ Per-(pixel, pass) semantics match the reference exactly:
 
 from __future__ import annotations
 
-from dataclasses import replace
+import os
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -30,6 +39,7 @@ from craytpu_torch.ops import sampler as smp
 from craytpu_torch.ops import shading
 from craytpu_torch.ops import vecmath as vm
 from craytpu_torch.ops.hitrec import make_isect_fn
+from craytpu_torch.runtime.checkpoint import GidQueue
 from craytpu_torch.scene.compile import CompiledScene
 
 
@@ -48,12 +58,75 @@ def _spread3(x):
     return x
 
 
+def _spread3_10(x):
+    """Space 10 bits out to every 3rd position (the pool's Morton
+    component)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+@dataclass
+class Pool:
+    """Per-lane state of the persistent wavefront (B lanes)."""
+    o: torch.Tensor        # (B, 3) f32 ray origin
+    d: torch.Tensor        # (B, 3) f32 ray direction
+    weight: torch.Tensor   # (B, 4) f32 path throughput
+    s: smp.SamplerState
+    alive: torch.Tensor    # (B,) bool
+    lane: torch.Tensor     # (B,) i32 flat pixel id of the path
+    lpass: torch.Tensor    # (B,) i32 pass of the path
+    pdepth: torch.Tensor   # (B,) i32 path depth
+    delta: torch.Tensor    # (B, 4) f32 radiance not yet flushed
+
+
+def _set_tail(pool: Pool, start: int, fresh: Pool) -> None:
+    """Overwrite lanes [start, B) of every pool tensor with `fresh`."""
+    for f in fields(Pool):
+        a, b = getattr(pool, f.name), getattr(fresh, f.name)
+        if f.name == "s":
+            for g in fields(a):
+                getattr(a, g.name)[start:] = getattr(b, g.name)
+        else:
+            a[start:] = b
+
+
+def _count_to_host(n: torch.Tensor):
+    """Start copying a live count to the host without waiting for it: on
+    CUDA into pinned memory behind an event. Read it with _count_value."""
+    if n.device.type != "cuda":
+        return n, None
+    buf = torch.empty((), dtype=n.dtype, pin_memory=True)
+    buf.copy_(n, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return buf, ev
+
+
+def _count_value(handle) -> int:
+    buf, ev = handle
+    if ev is not None:
+        ev.synchronize()
+    return int(buf)
+
+
 class WavefrontRenderer:
     """Render pipeline for one compiled scene + sampler kind, on the
     scene's device."""
 
+    # the drain runs as one loop of 8-bounce steps, checking for live
+    # lanes once a step, once the pool is at most this wide
+    DRAIN_DEV_MAX = 262144
+
     def __init__(self, cscene: CompiledScene, kind: str = smp.RANDOM,
-                 bounces: int | None = None):
+                 bounces: int | None = None, tile_rays: int | None = None,
+                 nee: bool = False):
+        if nee:
+            raise NotImplementedError(
+                "next-event estimation (nee=True) is not ported yet: "
+                "ROADMAP.md item 13")
         self.cscene = cscene
         self.kind = kind
         self.device = cscene.device
@@ -61,28 +134,36 @@ class WavefrontRenderer:
         self.height = cscene.camera.height
         self.max_depth = (bounces if bounces is not None
                           else cscene.prefs.bounces)
-        # frames are traced in fixed-size ray batches: bounds live-ray
-        # memory (2^20 lanes on the card, 2^18 on the CPU)
+        # frames are traced in fixed-size ray batches (and the persistent
+        # pool holds this many lanes): bounds live-ray memory (2^20 lanes
+        # on the card, 2^18 on the CPU)
         npix = self.width * self.height
         default_rays = 1 << 20 if self.device.type == "cuda" else 1 << 18
-        self.tile_rays = min(default_rays, _next_pow2(npix))
+        self.tile_rays = int(tile_rays
+                             or os.environ.get("CRAYTPU_TILE_RAYS", 0)
+                             or min(default_rays, _next_pow2(npix)))
         self.cam_fn = cscene.camera_fn(kind)
         self.bg_fn = cscene.background_fn()
         self.bsdf_fns = cscene.bsdf_fns(kind)
         self.empty_scene = cscene.n_instances == 0
         self.isect = make_isect_fn(cscene)
         self._sched = None
-        self._compact_consts = None
+        self._sched_np = None
+        self._sched_dev_t = None
+        self._key_consts = {}
 
     # ------------------------------------------------------------------
-    def _init_rays(self, xs, ys, pass_idx: int, spp: int):
+    def _init_rays(self, xs, ys, pass_idx, spp: int):
         """Primary rays and fresh sampler states for pixel coords (the
-        JAX package's _make_init_rays)."""
+        JAX package's _make_init_rays). pass_idx: an int, or a (B,)
+        tensor of one pass per lane."""
         B = xs.shape[0]
         pix_idx = ys.long() * self.width + xs.long()
         full = lambda v: torch.full((B,), v, dtype=torch.int32,  # noqa: E731
                                     device=xs.device)
-        s = smp.init_sampler(self.kind, full(pass_idx), full(spp), pix_idx)
+        if not torch.is_tensor(pass_idx):
+            pass_idx = full(pass_idx)
+        s = smp.init_sampler(self.kind, pass_idx, full(spp), pix_idx)
         return self.cam_fn(xs, ys, s)
 
     def _shade_all(self, params, rec, st, gid):
@@ -158,31 +239,42 @@ class WavefrontRenderer:
         d = torch.where(sv, out, d)
         return o, d, weight, final, s, survive
 
-    def _multi_step(self, k, o, d, weight, s, alive, pdepth, final_full,
-                    lane):
-        """k bounces, then the radiance deltas scatter-add into the batch
-        buffer by lane. pdepth is the per-lane path depth."""
-        delta = torch.zeros_like(weight)
+    def _bounces(self, k, o, d, weight, delta, s, alive, pdepth):
+        """k bounces; radiance sums into the per-lane delta. pdepth is the
+        per-lane path depth: the per-path bounce cap (prefs.bounces) and
+        the Russian-roulette phase follow each path's own depth."""
         for _ in range(k):
-            # per-path bounce cap (prefs.bounces)
             alive = alive & (pdepth < self.max_depth)
             o, d, weight, delta, s, alive = self._step(
                 o, d, weight, delta, s, alive, pdepth >= 4)
             pdepth = pdepth + 1
+        return o, d, weight, delta, s, alive, pdepth
+
+    def _multi_step(self, k, o, d, weight, s, alive, pdepth, final_full,
+                    lane):
+        """k bounces, then the radiance deltas scatter-add into the batch
+        buffer by lane."""
+        o, d, weight, delta, s, alive, pdepth = self._bounces(
+            k, o, d, weight, torch.zeros_like(weight), s, alive, pdepth)
         final_full.index_add_(0, lane, delta)
         return o, d, weight, s, alive, pdepth, int(alive.sum())
+
+    def _key_consts_for(self, top: float):
+        """(lo, top / extent) of the scene's root box, f32 on the device:
+        quantises an origin to [0, top] per axis. Cached per `top`."""
+        if top not in self._key_consts:
+            bb = self.cscene.geom.node_bounds[0].cpu().numpy()
+            ext = np.maximum(bb[[1, 3, 5]] - bb[[0, 2, 4]], 1e-6)
+            self._key_consts[top] = (
+                torch.tensor(bb[[0, 2, 4]], device=self.device),
+                torch.tensor((top / ext).astype(np.float32),
+                             device=self.device))
+        return self._key_consts[top]
 
     def _compact(self, o, d, weight, s, alive, lane, pdepth, Bn: int):
         """Sort the wavefront by a spatial key (dead lanes last, stable)
         and keep the first Bn lanes (the JAX package's _make_compact)."""
-        if self._compact_consts is None:
-            bb = self.cscene.geom.node_bounds[0].cpu().numpy()
-            ext = np.maximum(bb[[1, 3, 5]] - bb[[0, 2, 4]], 1e-6)
-            self._compact_consts = (
-                torch.tensor(bb[[0, 2, 4]], device=self.device),
-                torch.tensor((127.0 / ext).astype(np.float32),
-                             device=self.device))
-        lo, inv_ext = self._compact_consts
+        lo, inv_ext = self._key_consts_for(127.0)
         # clamp to [0, 127] (and mask, so a NaN origin cannot escape the
         # live key range)
         q = torch.clamp((o - lo) * inv_ext, 0.0, 127.0).long() & 0x7F
@@ -231,14 +323,23 @@ class WavefrontRenderer:
         return final
 
     @property
-    def _pixel_schedule(self):
-        """Tile-ordered pixel permutation (xs, ys, flat_idx, T), padded to a
-        whole number of fixed-size ray batches. Cached."""
-        if self._sched is None:
+    def _sched_host(self):
+        """Tile-ordered pixel coordinates (xs, ys) of the frame: numpy
+        int32, one entry per pixel. Cached."""
+        if self._sched_np is None:
             from craytpu_torch.runtime.tile import pixel_order
             p = self.cscene.prefs
             xs, ys, _, _ = pixel_order(self.width, self.height, p.tile_width,
                                        p.tile_height, p.tile_order)
+            self._sched_np = (xs, ys)
+        return self._sched_np
+
+    @property
+    def _pixel_schedule(self):
+        """Tile-ordered pixel permutation (xs, ys, flat_idx, T), padded to a
+        whole number of fixed-size ray batches. Cached."""
+        if self._sched is None:
+            xs, ys = self._sched_host
             npix = self.width * self.height
             T = min(self.tile_rays, _next_pow2(npix))
             if npix % T:
@@ -274,6 +375,326 @@ class WavefrontRenderer:
             if progress is not None:
                 progress(p + 1, spp, accum)
         return accum.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # persistent wavefront: the pool stays full across tiles AND passes
+    # ------------------------------------------------------------------
+    def _pool_step(self, k: int, pool: Pool):
+        """k bounces over the persistent pool. Radiance sums into the
+        per-lane delta (flushed to the framebuffer only at refill and
+        shrink boundaries). Returns (pool, live count as a device tensor);
+        nothing here waits for the device."""
+        o, d, weight, delta, s, alive, pdepth = self._bounces(
+            k, pool.o, pool.d, pool.weight, pool.delta, pool.s, pool.alive,
+            pool.pdepth)
+        return (Pool(o, d, weight, s, alive, pool.lane, pool.lpass, pdepth,
+                     delta), alive.sum())
+
+    @property
+    def _sched_dev(self):
+        """Device-resident pixel schedule: (npix, 4) i32 rows
+        [x, y, flat_pixel_id, 0] in tile order (one gather serves a whole
+        refill)."""
+        if self._sched_dev_t is None:
+            xs, ys = self._sched_host
+            flat = (ys.astype(np.int64) * self.width + xs).astype(np.int32)
+            self._sched_dev_t = torch.tensor(
+                np.stack([xs, ys, flat, np.zeros_like(xs)], axis=1),
+                device=self.device)
+        return self._sched_dev_t
+
+    def _fresh_pool(self, o, d, s, lane, lpass, alive) -> Pool:
+        """Lanes of fresh primaries: unit throughput, depth 0, no
+        radiance yet. lane and lpass are int32."""
+        n = o.shape[0]
+        return Pool(o, d, o.new_ones(n, 4), s, alive, lane.contiguous(),
+                    lpass, torch.zeros(n, dtype=torch.int32, device=o.device),
+                    o.new_zeros(n, 4))
+
+    def _prime_dev(self, B: int, qpix: int, qpass: int, take_n: int,
+                   spp: int) -> Pool:
+        """B fresh primaries generated on the device for the queue entries
+        from (pass qpass, schedule index qpix) on; lanes at or past take_n
+        are dead. The initial pool fill, and the fresh block of every
+        contiguous-range refill."""
+        npix = self.width * self.height
+        i = torch.arange(B, dtype=torch.int32, device=self.device)
+        px_i = i + qpix
+        fpass = px_i // npix + qpass
+        rows = self._sched_dev[px_i % npix]
+        o, d, s = self._init_rays(rows[:, 0], rows[:, 1], fpass, spp)
+        return self._fresh_pool(o, d, s, rows[:, 2], fpass, i < take_n)
+
+    def _morton_key(self, o, d, alive):
+        """Spatial+octant sort key of the pool: octant-major, then a
+        9-bit/axis Morton code of the quantised origin. int64 keys holding
+        uint32 values; dead lanes get 0xFFFFFFFF, so a stable argsort is
+        also the alive-first pack."""
+        lo, inv_ext = self._key_consts_for(511.0)
+        # clamp to [0, 511] (and mask, so a NaN origin cannot escape the
+        # live key range)
+        q = torch.clamp((o - lo) * inv_ext, 0.0, 511.0).long() & 0x1FF
+        octant = ((d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long()
+                  + 4 * (d[:, 2] < 0).long())
+        key = (_spread3_10(q[:, 0]) | (_spread3_10(q[:, 1]) << 1)
+               | (_spread3_10(q[:, 2]) << 2)) | (octant << 27)
+        return torch.where(alive, key, 0xFFFFFFFF)
+
+    def _permute_pool(self, order, pool: Pool) -> Pool:
+        """Gather every pool tensor by a lane permutation (or a prefix of
+        one). Each result is a new contiguous tensor, as K2/K1 need."""
+        return Pool(pool.o[order], pool.d[order], pool.weight[order],
+                    pool.s.index(order), pool.alive[order], pool.lane[order],
+                    pool.lpass[order], pool.pdepth[order],
+                    pool.delta[order])
+
+    def _flush_pack(self, B: int, n: int, final, pool: Pool) -> Pool:
+        """Morton-sort the pool (dead lanes last), then flush the radiance
+        of the last n lanes, which are dead (n_alive <= B - n by the
+        lagged live count), into the framebuffer sum `final`."""
+        order = torch.argsort(self._morton_key(pool.o, pool.d, pool.alive),
+                              stable=True)
+        pool = self._permute_pool(order, pool)
+        final.index_add_(0, pool.lane[B - n:], pool.delta[B - n:])
+        return pool
+
+    def _flush_pack_refill(self, B: int, m: int, Q: int, final, pool: Pool,
+                           qpix: int, qpass: int, take_n: int,
+                           spp: int) -> Pool:
+        """At a refill boundary:
+          1. Morton/octant sort the pool (dead lanes last): spatially
+             coherent rays keep K2's walks short on bounced rays
+          2. add the radiance deltas of ONLY the dead tail lanes being
+             overwritten by fresh rays into `final` (in place). Live lanes
+             keep their partial sums so an interrupt checkpoint can
+             re-enqueue them without double counting; other dead lanes
+             ride until a later refill overwrites them.
+          3. generate m*Q fresh primaries on the device from the queue
+             position (no host round trip) and put them in the tail.
+        """
+        pool = self._flush_pack(B, m * Q, final, pool)
+        _set_tail(pool, B - m * Q,
+                  self._prime_dev(m * Q, qpix, qpass, take_n, spp))
+        return pool
+
+    def _flush_pack_refill_host(self, B: int, m: int, Q: int, final,
+                                pool: Pool, fresh: Pool) -> Pool:
+        """Like _flush_pack_refill but takes host-prepared fresh rays —
+        used only when resuming with re-enqueued pending paths (whose ids
+        are not a contiguous queue range)."""
+        pool = self._flush_pack(B, m * Q, final, pool)
+        _set_tail(pool, B - m * Q, fresh)
+        return pool
+
+    def _final_flush(self, final, pool: Pool) -> None:
+        """Add the radiance of every DEAD lane into `final` (in place).
+        Live lanes are in-flight paths whose partial sums must not reach
+        the framebuffer: an interrupt checkpoint re-enqueues them."""
+        final.index_add_(0, pool.lane,
+                         torch.where(pool.alive[:, None], 0.0, pool.delta))
+
+    def _pack_shrink(self, Bn: int, final, pool: Pool) -> Pool:
+        """Flush dead lanes' radiance, Morton-sorted alive-first pack,
+        then truncate the pool to Bn lanes (drain phase). The flush must
+        happen HERE: truncation drops dead lanes."""
+        self._final_flush(final, pool)
+        delta = torch.where(pool.alive[:, None], pool.delta, 0.0)
+        order = torch.argsort(self._morton_key(pool.o, pool.d, pool.alive),
+                              stable=True)[:Bn]
+        return self._permute_pool(order, replace(pool, delta=delta))
+
+    def _drain_all(self, pool: Pool) -> Pool:
+        """Run the pool to extinction: steps of 8 bounces until no lane
+        is alive, checked once a step. A step changes nothing for a dead
+        lane (its radiance, throughput, ray and sampler are all masked),
+        so the extra bounces of the last step do not change the image."""
+        while True:
+            pool, _ = self._pool_step(8, pool)
+            if not bool(pool.alive.any()):
+                return pool
+
+    def render_persistent(self, spp: int | None = None, progress=None,
+                          resume=None, interrupt=None, on_frame=None,
+                          fetch=True):
+        """Full render as ONE persistent wavefront: a fixed pool of
+        tile_rays lanes; dead lanes are replaced by fresh (pixel, pass)
+        primaries from the queue, so every step runs the full pool across
+        tile and pass boundaries (no per-pass drain). Same per-(pixel,
+        pass) streams as render(), same result up to float accumulation
+        order.
+
+        The host loop is PIPELINED: the live count of step i is copied to
+        the host asynchronously and read one step late, so the host never
+        waits for the device between steps. The lagged count only ever
+        overestimates the live set, so refill decisions stay safe.
+
+        resume: optional dict from a persistent checkpoint
+        (runtime/checkpoint.py): {final_sum (npix,4), pending, ranges}
+        where pending is an (n,) int64 array of in-flight queue ids to
+        re-trace and ranges the untaken queue.
+        interrupt: optional callable polled once per step; when it
+        returns True the render stops and returns ("interrupted",
+        final_sum, pending ids, ranges) for checkpointing instead of the
+        finished frame.
+        on_frame(final_sum, done): called after every refill with the
+        framebuffer SUM on the device and the queue entries taken.
+        fetch=False returns the frame on the device.
+        """
+        spp = spp if spp is not None else self.cscene.prefs.sample_count
+        H, W = self.height, self.width
+        npix = H * W
+        dev = self.device
+        if self.empty_scene or self.max_depth == 0:
+            acc = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+            for p in range(spp):
+                acc = self.render_pass(acc, p, spp)
+            return acc.cpu().numpy()
+        B = min(self.tile_rays, _next_pow2(npix))
+        # refill quantum: a sixteenth of the pool
+        Q = B // 16
+        k_env = os.environ.get("CRAYTPU_POOL_K")
+        k = int(k_env) if k_env else 1
+        force_k = bool(k_env)   # an explicit k also holds in the drain
+
+        total = npix * spp
+        if resume is not None:
+            final = torch.tensor(np.asarray(resume["final_sum"], np.float32),
+                                 device=dev).reshape(npix, 4)
+            queue = GidQueue(pending=resume["pending"],
+                             ranges=resume["ranges"])
+        else:
+            final = torch.zeros((npix, 4), dtype=torch.float32, device=dev)
+            queue = GidQueue(ranges=[[0, total]])
+
+        def take(n):
+            """Next n queue entries as fresh lanes built on the host, and
+            how many were taken. Entries past the end are padded dead."""
+            ids = queue.take(n)
+            took = ids.shape[0]
+            ids_pad = np.concatenate(
+                [ids, np.zeros(n - took, np.int64)]) if took < n else ids
+            px = ids_pad % npix
+            xs_f, ys_f = self._sched_host
+            xs = torch.tensor(xs_f[px], device=dev)
+            ys = torch.tensor(ys_f[px], device=dev)
+            passes = torch.tensor((ids_pad // npix).astype(np.int32),
+                                  device=dev)
+            o, d, s = self._init_rays(xs, ys, passes, spp)
+            lane = torch.tensor(
+                (ys_f[px].astype(np.int64) * W + xs_f[px]).astype(np.int32),
+                device=dev)
+            falive = torch.tensor(np.arange(n) < took, device=dev)
+            return self._fresh_pool(o, d, s, lane, passes, falive), took
+
+        # prime the pool — on the device from the queue head when the head
+        # is a contiguous range (always, except pending-id resumes)
+        if not queue.pending and queue.ranges:
+            lo, hi = queue.ranges[0]
+            took = min(B, hi - lo)
+            pool = self._prime_dev(B, lo % npix, lo // npix, took, spp)
+            queue.ranges[0][0] += took
+            if queue.ranges[0][0] >= hi:
+                queue.ranges.pop(0)
+        else:
+            pool, took = take(B)
+        stale_n = took                 # lagged upper bound on live lanes
+        counts: list = []              # in-flight [count handle, adjust]
+        while True:
+            Bc = pool.alive.shape[0]
+            # drain phase: more bounces a step as the pool shrinks
+            kc = k if (force_k or Bc > 32768) else (4 if Bc > 4096 else 8)
+            pool, n_live = self._pool_step(kc, pool)
+            counts.append([_count_to_host(n_live), 0])
+            # lag-1 count: read step i-1's count while the device runs
+            # step i
+            if len(counts) >= 2:
+                handle, adj = counts.pop(0)
+                stale_n = _count_value(handle) + adj
+            if progress is not None:
+                progress(total - queue.left() - min(stale_n, Bc), total)
+
+            # interrupt latency bound: poll once per step, not only at
+            # refill boundaries
+            if interrupt is not None and interrupt():
+                return self._persistent_interrupt(final, pool, npix, queue)
+
+            if queue.left() > 0 and Bc == B and stale_n <= B - Q:
+                # refill on the LAGGED count: it only overestimates the
+                # live set, so the tail lanes it clears are dead. m rounds
+                # down to a power of two.
+                m = min((B - stale_n) // Q, 8,
+                        max((queue.left() + Q - 1) // Q, 1))
+                while m & (m - 1):
+                    m &= m - 1
+                if queue.pending:
+                    # resume path: non-contiguous re-enqueued ids go
+                    # through the host-side fresh-ray builder
+                    fresh, took = take(m * Q)
+                    pool = self._flush_pack_refill_host(B, m, Q, final, pool,
+                                                        fresh)
+                else:
+                    lo, hi = queue.ranges[0]
+                    took = min(m * Q, hi - lo)
+                    pool = self._flush_pack_refill(
+                        B, m, Q, final, pool, lo % npix, lo // npix, took,
+                        spp)
+                    queue.ranges[0][0] += took
+                    if queue.ranges[0][0] >= hi:
+                        queue.ranges.pop(0)
+                # counts issued before this refill undercount by took
+                for e in counts:
+                    e[1] += took
+                stale_n += took
+                if on_frame is not None:
+                    on_frame(final, total - queue.left())
+            elif queue.left() == 0:
+                # drain: exact count, early exit, shrink buckets
+                handle, adj = counts[-1]
+                stale_n = _count_value(handle) + adj
+                counts.clear()
+                if stale_n == 0:
+                    break
+                need = max(_next_pow2(stale_n), 1024)
+                Bn = Bc
+                while Bn // 4 >= need:
+                    Bn //= 4
+                if Bn < Bc:
+                    pool = self._pack_shrink(Bn, final, pool)
+                if pool.alive.shape[0] <= self.DRAIN_DEV_MAX \
+                        and interrupt is None:
+                    pool = self._drain_all(pool)
+                    break
+        self._final_flush(final, pool)
+        # divide by a tensor: on CUDA, tensor / python float multiplies
+        # by the reciprocal
+        final = (final / final.new_tensor(float(spp))).reshape(H, W, 4)
+        return final.cpu().numpy() if fetch else final
+
+    def fetch_partial(self, final) -> np.ndarray:
+        """Host copy of the in-progress radiance-sum frame (npix, 4) —
+        the preview fetch hook."""
+        return final.cpu().numpy()
+
+    def _persistent_interrupt(self, final, pool: Pool, npix: int,
+                              queue: GidQueue):
+        """Checkpoint state at an interrupt: flush completed (dead) lanes'
+        radiance, collect in-flight (pixel, pass) queue ids to re-trace,
+        and keep the un-taken queue (any not-yet-consumed re-enqueued ids
+        plus the remaining ranges). Returns
+        ("interrupted", final_sum (npix,4) np, pending ids, ranges)."""
+        self._final_flush(final, pool)
+        alive_h = pool.alive.cpu().numpy()
+        lane_h = pool.lane.cpu().numpy()[alive_h]
+        pass_h = pool.lpass.cpu().numpy()[alive_h]
+        # queue ids index the TILE-ORDER pixel schedule; lane is the flat
+        # pixel id — invert the schedule permutation
+        xs_f, ys_f = self._sched_host
+        inv = np.empty(npix, np.int64)
+        inv[ys_f.astype(np.int64) * self.width + xs_f] = np.arange(npix)
+        pend = pass_h.astype(np.int64) * npix + inv[lane_h]
+        pend = np.concatenate([pend, np.asarray(queue.pending, np.int64)])
+        return ("interrupted", final.cpu().numpy(), pend,
+                [list(r) for r in queue.ranges])
 
 
 def render(cscene: CompiledScene, kind: str = smp.RANDOM,

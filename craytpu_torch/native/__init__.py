@@ -22,28 +22,39 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _LIBS: dict[str, object] = {}
 
 
-def _build(name: str) -> str | None:
-    src = os.path.join(_DIR, f"{name}.cpp")
+def _build(name: str, lib_dir: str = _DIR) -> str | None:
+    """Path of lib<name>-<source hash>.so in lib_dir, built if missing.
+    Safe when several processes build at once: each compiles into a
+    temporary name of its own and renames it into place (an atomic
+    replace by identical bytes), and one that finds the library already
+    published uses it."""
+    src = os.path.join(lib_dir, f"{name}.cpp")
     with open(src, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_DIR, f"lib{name}-{tag}.so")
+    out = os.path.join(lib_dir, f"lib{name}-{tag}.so")
     if os.path.exists(out):
         return out
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o",
-           out + ".tmp"]
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
     except (subprocess.SubprocessError, OSError) as e:
+        if os.path.exists(out):     # another process published it
+            return out
         from craytpu_torch.utils import logging
         logging.warning("native build of %s failed (%s); using Python path",
                         name, e)
         return None
-    os.replace(out + ".tmp", out)
-    # clean up stale builds of this lib
-    for f in os.listdir(_DIR):
-        if f.startswith(f"lib{name}-") and f != os.path.basename(out):
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    # clean up stale builds of this lib (never another process's .tmp)
+    for f in os.listdir(lib_dir):
+        if (f.startswith(f"lib{name}-") and f.endswith(".so")
+                and f != os.path.basename(out)):
             try:
-                os.remove(os.path.join(_DIR, f))
+                os.remove(os.path.join(lib_dir, f))
             except OSError:
                 pass
     return out
