@@ -45,6 +45,35 @@ Phases (any failure exits non-zero and prints no result line):
                taken in turns (per-pass, persistent, persistent,
                per-pass, three rounds: median and range); and the same
                kernel-time breakdown as phase 4 for a persistent frame.
+  6. grad    — the differentiable trace at full width: the first 2^20
+               pixels of the 1080p stress_highpoly frame (tile order),
+               pass 0 of 4, 12 bounces, census_schedule(passes=[0],
+               safety=1.05, quant=1024, shrink_ratio=0.5) and
+               make_trace_fn(remat="segment_hits", compaction=schedule,
+               sort="boundary"); loss = mean(img[..., :3]) and its gradient
+               with respect to every ShadeParams table. Prints the
+               schedule, fwd+bwd paths/s (2 timed runs after a warm-up),
+               peak device memory, K2 and K1 launches and device ms per
+               fwd+bwd and the device busy share (torch.profiler); then
+               the same with diff_geometry=True (gradient into tri_packed).
+               Fails unless (a) the forward image equals trace_batch of
+               the same lanes (rtol=2e-5, atol=2e-6) and every gradient
+               is finite, colors and emission non-zero; (b) on 2^16 lanes
+               the compacted trace gives the plain trace's image (rtol=
+               2e-5, atol=2e-6) and gradients (rtol=2e-4, atol=1e-6),
+               launching K2 in fwd+bwd as often as in the forward alone;
+               (c) gradients match finite differences: colors and
+               emission on tests/test_grad.py's scene, vertices on
+               tests/test_vertex_grad.py's flat cube.
+  7. nee     — next-event estimation: on tests/test_nee.py's scene the
+               persistent pool, the per-pass render and the summed
+               make_trace_fn(nee=True) passes agree (rtol=2e-5,
+               atol=2e-6) and the NEE gradient of the emitter's emission
+               matches FD (rtol=2e-3); a persistent 1080p stress_highpoly
+               frame with NEE: launches, peak memory, and paths/s in
+               turns with the frame without NEE; and `python3 -m
+               craytpu_torch assets/stress_highpoly.json -s 4 -d
+               1920x1080 --nee` (exit 0, a 1920x1080 PNG).
 Then one line {"kernels": [...]} and, last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
@@ -642,6 +671,446 @@ def phase_persistent(torch, kernels: dict) -> None:
                                                              fetch=False))
 
 
+# the scenes of tests/test_grad.py, tests/test_vertex_grad.py and
+# tests/test_nee.py (copied: this script imports nothing of the tests,
+# which import jax)
+GRAD_SCENE = {
+    "renderer": {"samples": 2, "bounces": 3, "width": 24, "height": 16},
+    "camera": {"FOV": 70.0, "transforms": [
+        {"type": "translate", "x": 0, "y": 0, "z": -4}]},
+    "scene": {
+        "ambientColor": {"down": {"r": 0.8, "g": 0.8, "b": 0.8},
+                         "up": {"r": 0.4, "g": 0.6, "b": 0.9}},
+        "primitives": [
+            {"type": "sphere", "radius": 1.0,
+             "color": {"r": 0.7, "g": 0.3, "b": 0.2}, "bsdf": "lambertian",
+             "instances": [{"transforms": [
+                 {"type": "translate", "x": 0, "y": 0, "z": 0}]}]},
+            {"type": "sphere", "radius": 0.5,
+             "color": {"r": 1.0, "g": 0.8, "b": 0.6}, "bsdf": "emissive",
+             "intensity": 4.0,
+             "instances": [{"transforms": [
+                 {"type": "translate", "x": 1.5, "y": 1.0, "z": -0.5}]}]},
+        ],
+    },
+}
+FLAT_SCENE = {
+    "renderer": {"samples": 1, "bounces": 2, "width": 96, "height": 64},
+    "camera": {"FOV": 60.0, "transforms": [
+        {"type": "translate", "x": 0, "y": 0.4, "z": -3.0}]},
+    "scene": {
+        "ambientColor": {"down": {"r": 1.0, "g": 0.9, "b": 0.8},
+                         "up": {"r": 0.4, "g": 0.6, "b": 1.0}},
+        "meshes": [{"fileName": "flatcube.obj", "bsdf": "lambertian",
+                    "instances": [{"transforms": [
+                        {"type": "rotateY", "degrees": 25}]}]}],
+    },
+}
+NEE_SCENE = {
+    "renderer": {"samples": 2, "bounces": 3, "width": 24, "height": 16},
+    "camera": {"FOV": 70.0, "transforms": [
+        {"type": "translate", "x": 0, "y": 0, "z": -4}]},
+    "scene": {
+        "ambientColor": {"down": {"r": 0.1, "g": 0.1, "b": 0.1},
+                         "up": {"r": 0.1, "g": 0.1, "b": 0.1}},
+        "primitives": [
+            {"type": "sphere", "radius": 1.0,
+             "color": {"r": 0.7, "g": 0.3, "b": 0.2}, "bsdf": "lambertian",
+             "instances": [{"transforms": [
+                 {"type": "translate", "x": 0, "y": 0, "z": 0}]}]},
+            {"type": "sphere", "radius": 0.1,
+             "color": {"r": 1.0, "g": 0.8, "b": 0.6}, "bsdf": "emissive",
+             "intensity": 400.0,
+             "instances": [{"transforms": [
+                 {"type": "translate", "x": 2.5, "y": 2.0, "z": -1.5}]}]},
+        ],
+    },
+}
+
+
+def load_buf(scene: dict, device=None):
+    """Compile a scene given as a dict (assets/ for its files)."""
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.scene.sceneloader import load_scene_from_buf
+    return compile_scene(load_scene_from_buf(
+        json.dumps(scene), os.path.join(REPO, "assets") + "/"), device)
+
+
+def pixel_grid(torch, ren):
+    """xs, ys of every pixel of ren's frame, row-major, on its device."""
+    n = ren.width * ren.height
+    i = torch.arange(n, dtype=torch.int32, device=ren.device)
+    return i % ren.width, i // ren.width
+
+
+def leaf_params(params):
+    """A copy of ShadeParams whose tables require grad."""
+    from dataclasses import fields, replace
+    return replace(params, **{f.name: getattr(params, f.name).clone()
+                              .requires_grad_() for f in fields(params)})
+
+
+def table_grads(torch, params) -> dict:
+    """Each table's gradient (zeros where none reached it)."""
+    from dataclasses import fields
+    return {f.name: (getattr(params, f.name).grad
+                     if getattr(params, f.name).grad is not None
+                     else torch.zeros_like(getattr(params, f.name)))
+            for f in fields(params)}
+
+
+def fwd_bwd(torch, trace, params, *args):
+    """One fwd+bwd of loss = mean(img[..., :3]), synchronised through the
+    loss value: (image, loss)."""
+    img = trace(params, *args)
+    loss = img[..., :3].mean()
+    loss.backward()
+    value = float(loss.detach())
+    torch.cuda.synchronize()
+    return img.detach(), value
+
+
+def counted(torch, fn) -> tuple:
+    """(fn(), K2 launches, K1 launches): both counters set to 0 just
+    before fn and read just after."""
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    trv.closest_hit.launches = 0
+    hr.hitrec_record.launches = 0
+    out = fn()
+    return out, trv.closest_hit.launches, hr.hitrec_record.launches
+
+
+def kernel_ms(fn) -> dict:
+    """Each kernel's launches and summed device ms over one fn() (CUDA
+    events around each launch)."""
+    from craytpu_torch.ops import cuda_build
+    with cuda_build.launch_timing() as times:
+        fn()
+    return {name: (len(v), sum(ms for _, ms in v)) for name, v in
+            times.items()}
+
+
+def close(got, want, rtol, atol) -> tuple:
+    """(every |got - want| <= atol + rtol |want|, max |d|, max of |d| over
+    that tolerance) of two tensors; NaN is never close."""
+    d = (got - want).abs()
+    tol = atol + rtol * want.abs()
+    return bool((d <= tol).all()), float(d.max()), float((d / tol).max())
+
+
+def fd_check(torch, loss, params, name, idx, eps, ad, rel, abs_):
+    """Central difference of loss in params.<name>[idx] against ad."""
+    from dataclasses import replace
+    vals = []
+    for sgn in (1.0, -1.0):
+        t = getattr(params, name).clone()
+        t[idx] += sgn * eps
+        with torch.no_grad():
+            vals.append(float(loss(replace(params, **{name: t}))))
+    fd = (vals[0] - vals[1]) / (2 * eps)
+    return abs(fd - ad) <= max(rel * abs(fd), abs_), fd
+
+
+def phase_grad(torch, kernels: dict, cs) -> None:
+    """Phase 6: the differentiable trace on the card (cs: stress_highpoly
+    compiled at 1080p)."""
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+
+    ren = WavefrontRenderer(cs)
+    xs_all, ys_all, _, _ = ren._pixel_schedule
+    B = min(1 << 20, xs_all.shape[0])
+    xs, ys = xs_all[:B], ys_all[:B]
+    t0 = time.perf_counter()
+    sched = ren.census_schedule(xs, ys, spp=SPP, passes=[0], safety=1.05,
+                                quant=1024, shrink_ratio=0.5)
+    print(f"grad: census schedule (B={B}, pass 0 of {SPP}, "
+          f"{ren.max_depth} bounces, {time.perf_counter() - t0:.2f} s): "
+          f"{sched}", flush=True)
+    trace = ren.make_trace_fn(remat="segment_hits", compaction=sched,
+                              sort="boundary")
+    args = (xs, ys, 0, SPP)
+    state = {}
+
+    def step():
+        state["p"] = leaf_params(cs.params)
+        state["img"], state["loss"] = fwd_bwd(torch, trace, state["p"],
+                                              *args)
+    step()                                                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    _, n_k2, n_k1 = counted(torch, step)
+    with torch.no_grad():
+        _, f_k2, f_k1 = counted(torch, lambda: trace(cs.params, *args))
+    if n_k2 == 0 or n_k1 == 0:
+        fail(f"fwd+bwd launched closest_hit {n_k2}x, hitrec {n_k1}x")
+    if n_k2 != f_k2 or n_k1 != f_k1:
+        fail(f"segment_hits fwd+bwd launched K2/K1 {n_k2}/{n_k1}x, the "
+             f"forward alone {f_k2}/{f_k1}x")
+    # (a) the forward image against trace_batch of the same lanes
+    with torch.no_grad():
+        want = ren.trace_batch(xs, ys, 0, SPP)
+    ok, err, _ = close(state["img"], want, 2e-5, 2e-6)
+    g = table_grads(torch, state["p"])
+    finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+    print(f"grad (a): forward vs trace_batch max |d| {err:.3e} ok={ok}; "
+          f"loss {state['loss']:.6f}; gradient max |g| per table: "
+          + ", ".join(f"{k} {float(v.abs().max()):.3e}" for k, v in
+                      g.items()) + f"; finite={finite}", flush=True)
+    if not (ok and finite and float(g["colors"].abs().max()) > 0
+            and float(g["emission"].abs().max()) > 0):
+        fail("grad (a): forward image or gradients")
+    ms = kernel_ms(step)
+    for name, n in (("closest_hit", n_k2), ("hitrec", n_k1)):
+        kernels[name]["launches_fwd_bwd"] = n
+        kernels[name]["ms_fwd_bwd"] = ms.get(name, (0, 0.0))[1]
+    rate = B / float(np.mean(secs))
+    print(f"grad fwd+bwd stress_highpoly B={B} {ren.max_depth} bounces: "
+          f"{' '.join(f'{x:.3f}' for x in secs)} s -> {rate:.0f} paths/s "
+          f"(mean of 2); peak device memory {peak / 2**30:.3f} GiB; "
+          f"launches per fwd+bwd closest_hit {n_k2}, hitrec {n_k1} (the "
+          f"forward alone: {f_k2}, {f_k1}); device ms per fwd+bwd (CUDA "
+          f"events) closest_hit {ms.get('closest_hit', (0, 0.0))[1]:.3f},"
+          f" hitrec {ms.get('hitrec', (0, 0.0))[1]:.3f}", flush=True)
+    print_frame_profile(torch, step)
+    del state
+
+    # full width with the vertex gradient (tri_packed, 130,560 rows)
+    trace_g = ren.make_trace_fn(diff_geometry=True, remat="segment_hits",
+                                compaction=sched, sort="boundary")
+
+    def step_g():
+        state["p"] = leaf_params(cs.params)
+        state["tp"] = cs.geom.tri_packed.clone().requires_grad_()
+        img = trace_g(state["p"], state["tp"], *args)
+        loss = img[..., :3].mean()
+        loss.backward()
+        state["loss"] = float(loss.detach())
+        torch.cuda.synchronize()
+    state = {}
+    step_g()                                               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, g_k2, g_k1 = counted(torch, step_g)
+    sec_g = time.perf_counter() - t0
+    peak_g = torch.cuda.max_memory_allocated()
+    gt = state["tp"].grad
+    nz = int((gt != 0).any(1).sum())
+    print(f"grad fwd+bwd with diff_geometry=True: tri_packed "
+          f"{tuple(gt.shape)}, {sec_g:.3f} s -> {B / sec_g:.0f} paths/s; "
+          f"peak device memory {peak_g / 2**30:.3f} GiB; launches "
+          f"closest_hit {g_k2}, hitrec {g_k1}; max |g| "
+          f"{float(gt.abs().max()):.3e}, {nz} rows with a gradient, "
+          f"finite={bool(torch.isfinite(gt).all())}", flush=True)
+    if not (bool(torch.isfinite(gt).all()) and nz > 0) or g_k2 == 0:
+        fail("grad: vertex gradient at full width")
+    kernels["closest_hit"]["launches_fwd_bwd_geometry"] = g_k2
+    kernels["hitrec"]["launches_fwd_bwd_geometry"] = g_k1
+    del state
+
+    # (b) 2^16 lanes: compacted + segment_hits + boundary sort against the
+    # plain, uncompacted trace without remat
+    b16 = min(1 << 16, B)
+    a16 = (xs[:b16], ys[:b16], 0, SPP)
+    s16 = ren.census_schedule(a16[0], a16[1], spp=SPP, passes=[0],
+                              safety=1.05, quant=1024, shrink_ratio=0.5)
+    res = {}
+    for name, tr in (("plain", ren.make_trace_fn()),
+                     ("compact", ren.make_trace_fn(
+                         remat="segment_hits", compaction=s16,
+                         sort="boundary"))):
+        p = leaf_params(cs.params)
+        (img, _), k2, _ = counted(torch, lambda: fwd_bwd(torch, tr, p,
+                                                         *a16))
+        with torch.no_grad():
+            _, k2f, _ = counted(torch, lambda: tr(cs.params, *a16))
+        res[name] = (img, table_grads(torch, p), k2, k2f)
+    img_ok, img_err, _ = close(res["compact"][0], res["plain"][0], 2e-5,
+                               2e-6)
+    g_ok = True
+    worst = 0.0
+    for k, v in res["plain"][1].items():
+        ok, _, ratio = close(res["compact"][1][k], v, 2e-4, 1e-6)
+        g_ok &= ok
+        worst = max(worst, ratio)
+    k2c, k2cf = res["compact"][2], res["compact"][3]
+    print(f"grad (b) B={b16} schedule {s16}: compacted vs plain image max "
+          f"|d| {img_err:.3e} ok={img_ok}; gradients ok={g_ok} (worst "
+          f"|d|/tol {worst:.3f}); K2 launches fwd+bwd {k2c}, forward alone "
+          f"{k2cf} (plain trace: {res['plain'][2]}, {res['plain'][3]})",
+          flush=True)
+    if not (img_ok and g_ok and k2c == k2cf):
+        fail("grad (b): compacted trace against the plain trace")
+
+    # (c) finite differences on the card
+    cs_g = load_buf(GRAD_SCENE)
+    r_g = WavefrontRenderer(cs_g, bounces=3)
+    tr_g = r_g.make_trace_fn(3)
+    gx, gy = pixel_grid(torch, r_g)
+
+    def loss_g(params):
+        return tr_g(params, gx, gy, 0, 2)[..., :3].mean()
+    p = leaf_params(cs_g.params)
+    loss_g(p).backward()
+    checked = []
+    gc = p.colors.grad.cpu().numpy()
+    for idx in np.argwhere(np.abs(gc) > 1e-4)[:8]:
+        i, j = int(idx[0]), int(idx[1])
+        ok, fd = fd_check(torch, loss_g, cs_g.params, "colors", (i, j),
+                          2e-3, float(gc[i, j]), 2e-2, 1e-4)
+        checked.append(("colors", i, j, float(gc[i, j]), fd, ok))
+    ge = p.emission.grad.cpu().numpy()
+    i, j = (int(v) for v in np.unravel_index(np.abs(ge).argmax(),
+                                             ge.shape))
+    ok, fd = fd_check(torch, loss_g, cs_g.params, "emission", (i, j), 1e-2,
+                      float(ge[i, j]), 2e-2, 1e-4)
+    checked.append(("emission", i, j, float(ge[i, j]), fd, ok))
+    print("grad (c) FD, colors and emission (rel 2e-2, abs 1e-4): "
+          + "; ".join(f"{n}[{a},{b}] AD {ad:.5f} FD {f:.5f}"
+                      for n, a, b, ad, f, _ in checked), flush=True)
+    if len(checked) < 3 or not all(c[-1] for c in checked):
+        fail("grad (c): material gradients against finite differences")
+
+    cs_f = load_buf(FLAT_SCENE)
+    r_f = WavefrontRenderer(cs_f, bounces=2)
+    tr_f = r_f.make_trace_fn(2, diff_geometry=True)
+    yy, xx = np.mgrid[20:44, 30:60]
+    fx = torch.tensor(xx.reshape(-1), dtype=torch.int32, device=cs_f.device)
+    fy = torch.tensor(yy.reshape(-1), dtype=torch.int32, device=cs_f.device)
+
+    def loss_f(tp):
+        return tr_f(cs_f.params, tp, fx, fy, 0, 1)[..., :3].mean()
+    tp0 = cs_f.geom.tri_packed
+    tp = tp0.clone().requires_grad_()
+    loss_f(tp).backward()
+    gv = tp.grad.cpu().numpy().astype(np.float64)
+    n_ok = n_bad = 0
+    for f in np.argsort(-np.abs(gv).reshape(-1))[:40]:
+        i, j = np.unravel_index(f, gv.shape)
+        vals = []
+        for sgn in (1.0, -1.0):
+            t = tp0.clone()
+            t[i, j] += sgn * 1e-3
+            with torch.no_grad():
+                vals.append(float(loss_f(t)))
+        fd = (vals[0] - vals[1]) / 2e-3
+        ad = gv[i, j]
+        # entries whose FD straddles a visibility edge are skipped (the
+        # detached search makes AD the interior derivative)
+        if abs(fd - ad) > 0.05 * max(abs(fd), abs(ad)) and \
+                abs(fd - ad) > 1e-4:
+            continue
+        if abs(fd - ad) <= max(5e-2 * abs(fd), 1e-4):
+            n_ok += 1
+        else:
+            n_bad += 1
+    print(f"grad (c) FD, flat cube vertices (rel 5e-2, abs 1e-4): "
+          f"{n_ok} entries agree, {n_bad} disagree, of the 40 largest",
+          flush=True)
+    if n_ok < 25 or n_bad:
+        fail("grad (c): vertex gradients against finite differences")
+
+
+def phase_nee(torch, kernels: dict, cs) -> None:
+    """Phase 7: next-event estimation on the card (cs: stress_highpoly
+    compiled at 1080p)."""
+    from dataclasses import replace
+
+    from craytpu_torch.io.png import read_png_rgb
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.parallel.pool_shard import make_renderer
+
+    # the three paths agree on tests/test_nee.py's scene
+    cs_n = load_buf(NEE_SCENE)
+    spp = 4
+    r = WavefrontRenderer(cs_n, nee=True)
+    xs, ys = pixel_grid(torch, r)
+    trace = r.make_trace_fn(r.max_depth, nee=True)
+    with torch.no_grad():
+        want = sum(trace(cs_n.params, xs, ys, p, spp) for p in range(spp))
+    want = (want / spp).reshape(r.height, r.width, 4)
+    pool = torch.from_numpy(r.render_persistent(spp)).to(want.device)
+    per_pass = torch.from_numpy(r.render(spp)).to(want.device)
+    ok_pool, e_pool, _ = close(pool, want, 2e-5, 2e-6)
+    ok_pass, e_pass, _ = close(per_pass, want, 2e-5, 2e-6)
+    plain = WavefrontRenderer(cs_n).render(spp)
+    print(f"nee: persistent vs trace max |d| {e_pool:.3e} ok={ok_pool}; "
+          f"per-pass vs trace {e_pass:.3e} ok={ok_pass}; mean radiance NEE "
+          f"{float(want[..., :3].mean()):.5f}, without "
+          f"{float(plain[..., :3].mean()):.5f}", flush=True)
+    if not (ok_pool and ok_pass):
+        fail("nee: the three paths disagree")
+
+    trace3 = r.make_trace_fn(depth=3, nee=True)
+
+    def loss(params):
+        return trace3(params, xs, ys, 0, 1)[..., :3].mean()
+    em = cs_n.params.emission.clone().requires_grad_()
+    loss(replace(cs_n.params, emission=em)).backward()
+    k = int(torch.argmax(cs_n.params.emission[:, 0]))
+    ad = float(em.grad[k, 0])
+    ok, fd = fd_check(torch, loss, cs_n.params, "emission", (k, 0), 1e-2,
+                      ad, 2e-3, 1e-6)
+    print(f"nee: gradient of emission[{k},0] AD {ad:.6e} FD {fd:.6e} "
+          f"(rtol 2e-3) ok={ok}", flush=True)
+    if not ok or fd == 0.0:
+        fail("nee: gradient against finite differences")
+
+    # the persistent 1080p frame with NEE
+    ren_n = make_renderer(cs, nee=True)
+    ren_p = make_renderer(cs)
+    frame_persistent(torch, ren_n)                         # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (fb, n_k2, n_k1) = counted(torch, lambda: ren_n.render_persistent(SPP))
+    peak = torch.cuda.max_memory_allocated()
+    if n_k2 == 0 or n_k1 == 0:
+        fail(f"NEE frame launched closest_hit {n_k2}x, hitrec {n_k1}x")
+    if fb.shape != (H, W, 4) or not np.isfinite(fb).all() \
+            or not fb[..., :3].max() > 0.0:
+        fail(f"NEE frame: shape {fb.shape}, finite={np.isfinite(fb).all()}")
+    kernels["closest_hit"]["launches_nee"] = n_k2
+    kernels["hitrec"]["launches_nee"] = n_k1
+    rates = {"without NEE": [], "NEE": []}
+    for _ in range(2):
+        for kind in ("without NEE", "NEE", "NEE", "without NEE"):
+            rn = ren_n if kind == "NEE" else ren_p
+            rates[kind].append(W * H * SPP / frame_persistent(torch, rn))
+    print(f"nee frame stress_highpoly {W}x{H} {SPP}spp persistent: "
+          f"launches closest_hit {n_k2}, hitrec {n_k1}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; mean radiance "
+          f"{float(fb[..., :3].mean()):.5f}", flush=True)
+    for kind, v in rates.items():
+        print(f"paths/s persistent frame {kind} ({len(v)} frames in "
+              f"turns): median {float(np.median(v)):.0f}, range "
+              f"{min(v):.0f}-{max(v):.0f}", flush=True)
+
+    # the CLI with --nee
+    cli_dir = os.path.join(REPO, "build", "chip_smoke", "cli_nee")
+    os.makedirs(cli_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "craytpu_torch",
+           os.path.join(REPO, "assets", "stress_highpoly.json"), "-s",
+           str(SPP), "-d", f"{W}x{H}", "--nee"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cli_dir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    png = os.path.join(cli_dir, "output", "stress_highpoly_0000.png")
+    if res.returncode != 0 or not os.path.exists(png):
+        fail(f"CLI --nee exited {res.returncode}: {res.stderr[-2000:]}")
+    img = read_png_rgb(png)
+    if img.shape != (H, W, 3) or not img.max() > 0:
+        fail(f"CLI --nee image: shape {img.shape}, max {img.max()}")
+    print(f"CLI {' '.join(cmd[2:])}: exit 0 in {cli_s:.1f} s; wrote {png} "
+          f"{img.shape}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -666,6 +1135,11 @@ def main() -> int:
     phase_golden(torch)
     phase_render(torch, kernels)
     phase_persistent(torch, kernels)
+    from craytpu_torch.scene.compile import compile_scene
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    phase_grad(torch, kernels, cs)
+    phase_nee(torch, kernels, cs)
     print(json.dumps({"kernels": [kernels["closest_hit"],
                                   kernels["hitrec"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

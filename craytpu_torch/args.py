@@ -28,9 +28,10 @@ Options:
   --iterative    Progressive render (Halton sampler, whole-frame passes)
   --resume <f>   Resume a render from a checkpoint file
   --preview [n]  Write a preview PNG every n passes
+  --nee          Next-event estimation (explicit light sampling)
   Not ported yet (each exits with the ROADMAP.md item that brings it):
   --worker [p], --nodes <list>, --shutdown, --preview-http [port]
-                 (item 15), --nee (item 13), --trace [dir] (item 16),
+                 (item 15), --trace [dir] (item 16),
                  --test [n], --test-perf, --tcount, --ptcount (item 15)
   Empty input reads the scene JSON from stdin.
   CRAYTPU_PLATFORM=cpu runs on the CPU (the default is the CUDA card).

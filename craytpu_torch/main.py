@@ -28,7 +28,6 @@ _LATER_ITEMS = {
     "use_clustering": ("--nodes", 15),
     "shutdown": ("--shutdown", 15),
     "preview_http": ("--preview-http", 15),
-    "nee": ("--nee", 13),
     "trace_dir": ("--trace", 16),
     "runTests": ("--test/--tcount/--ptcount", 15),
     "runPerfTests": ("--test-perf", 15),
@@ -148,7 +147,11 @@ def main(argv: list[str] | None = None, device=None) -> int:
 
     cscene = compile_scene(scene, device)
     kind = smp.HALTON if opts.get("interactive") else smp.RANDOM
-    r = make_renderer(cscene, kind=kind)
+    # --nee: next-event estimation (explicit light sampling, ops/nee.py)
+    nee = bool(opts.get("nee"))
+    if nee:
+        logging.info("Next-event estimation enabled (--nee)")
+    r = make_renderer(cscene, kind=kind, nee=nee)
 
     spp = scene.prefs.sample_count
     start_pass = 0

@@ -16,6 +16,18 @@ Two ways through a frame, as in the JAX package:
     full pool across tile and pass boundaries. It can stop at an
     interrupt and resume from a checkpoint (runtime/checkpoint.py).
 
+And the differentiable trace (make_trace_fn): a fixed-depth trace of one
+pass whose image PyTorch's autograd differentiates with respect to the
+material tables (ShadeParams) and, optionally, the packed triangle rows.
+The closest-hit search stays detached (the detached-sampling estimator);
+a compaction schedule (census_schedule) packs the live lanes as the
+wavefront shrinks, and remat recomputes bounces in the backward pass
+instead of keeping their residuals.
+
+Next-event estimation (nee=True, ops/nee.py) runs in every path: the
+per-lane "previous vertex was NEE-handled" flag rides in bit 16 of the
+pool's path depth (depths are < 2^16).
+
 Per-(pixel, pass) semantics match the reference exactly:
   - sampler re-seeded per (pixel, pass): Random/PCG32 in batch mode
     (renderer.c:281), Halton in interactive mode (renderer.c:206)
@@ -34,11 +46,13 @@ from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from craytpu_torch.ops import sampler as smp
 from craytpu_torch.ops import shading
 from craytpu_torch.ops import vecmath as vm
-from craytpu_torch.ops.hitrec import make_isect_fn
+from craytpu_torch.ops.hitrec import Isect
+from craytpu_torch.ops.nee import make_nee_fn
 from craytpu_torch.runtime.checkpoint import GidQueue
 from craytpu_torch.scene.compile import CompiledScene
 
@@ -120,15 +134,20 @@ class WavefrontRenderer:
     # lanes once a step, once the pool is at most this wide
     DRAIN_DEV_MAX = 262144
 
+    # sort="boundary" adds a sort point every this many bounces inside a
+    # compaction segment (the JAX package's CRAYTPU_TRACE_SORT_EVERY
+    # default)
+    TRACE_SORT_EVERY = 3
+
     def __init__(self, cscene: CompiledScene, kind: str = smp.RANDOM,
                  bounces: int | None = None, tile_rays: int | None = None,
                  nee: bool = False):
-        if nee:
-            raise NotImplementedError(
-                "next-event estimation (nee=True) is not ported yet: "
-                "ROADMAP.md item 13")
         self.cscene = cscene
         self.kind = kind
+        # next-event estimation in render, render_pass, trace_batch and
+        # render_persistent (make_trace_fn takes its own flag)
+        self.nee = bool(nee)
+        self.nee_fn = make_nee_fn(cscene, kind)
         self.device = cscene.device
         self.width = cscene.camera.width
         self.height = cscene.camera.height
@@ -146,7 +165,7 @@ class WavefrontRenderer:
         self.bg_fn = cscene.background_fn()
         self.bsdf_fns = cscene.bsdf_fns(kind)
         self.empty_scene = cscene.n_instances == 0
-        self.isect = make_isect_fn(cscene)
+        self.isect = Isect(cscene)
         self._sched = None
         self._sched_np = None
         self._sched_dev_t = None
@@ -182,15 +201,24 @@ class WavefrontRenderer:
             s_sel = smp.select_state(m, s_i, s_sel)
         return out, col, s_sel
 
-    def _step(self, o, d, weight, final, s, alive, rr_active):
+    def _step(self, o, d, weight, final, s, alive, rr_active,
+              prev_nee=None, params=None, isect=None):
         """One wavefront bounce (the JAX package's _make_step with
-        rr_phase="dynamic", diff=False, nee=False). rr_active: per-lane
-        Russian-roulette phase (path depth >= 4)."""
+        rr_phase="dynamic"). rr_active: per-lane (or 0-d) Russian-roulette
+        phase (path depth >= 4). prev_nee: the per-lane flag of next-event
+        estimation (None: NEE off); with it the step returns the flag for
+        the next bounce as a 7th output. params: the material tables to
+        differentiate (default: the scene's). isect: the closest-hit +
+        record function (default: the renderer's; make_trace_fn passes the
+        vertex-differentiable one, or one that replays saved searches)."""
         cs = self.cscene
-        params = cs.params
+        params = cs.params if params is None else params
+        isect = self.isect if isect is None else isect
         kind = self.kind
-        is_hit, p_w, n_w, uv, mat_id, hit_t = self.isect(cs.geom, o, d,
-                                                         alive)
+        # the search takes detached rays (a discrete walk has no
+        # gradient); gradients flow through the throughput chain
+        is_hit, p_w, n_w, uv, mat_id, hit_t = isect(cs.geom, o.detach(),
+                                                    d.detach(), alive)
         is_hit = is_hit & alive
 
         # miss: final += weight * background, terminate (pathtrace.c:39-42)
@@ -199,9 +227,10 @@ class WavefrontRenderer:
         final = torch.where(take_bg, final + weight * bg, final)
 
         mid = mat_id.long()
-        mat_emission = params.emission[mid]
-        mat_ior = params.ior[mid]
-        # sanitize non-hit lanes: their hit data is garbage (t=FLT_MAX)
+        mat_emission = vm.take_rows(params.emission, mid)
+        mat_ior = vm.take_rows(params.ior, mid)
+        # sanitize non-hit lanes: their hit data is garbage (t=FLT_MAX), and
+        # a NaN in an untaken torch.where branch poisons the backward pass
         ih = is_hit[..., None]
         n_safe = torch.where(ih, n_w, n_w.new_tensor([0.0, 0.0, 1.0]))
         p_safe = torch.where(ih, p_w, 0.0)
@@ -211,17 +240,31 @@ class WavefrontRenderer:
                              hit_point=p_safe, distance=t_safe,
                              emission=mat_emission, ior=mat_ior,
                              mat_id=mat_id)
-        # hit: final += weight * legacy emission (pathtrace.c:44)
-        final = torch.where(ih, final + weight * mat_emission, final)
+        # hit: final += weight * legacy emission (pathtrace.c:44). With NEE
+        # on, a hit after an NEE-handled diffuse vertex got its direct
+        # light from the shadow ray: its emission is suppressed, for the
+        # emitters the light table samples
+        nee_fn = self.nee_fn if prev_nee is not None else None
+        emit_ok = is_hit
+        if nee_fn is not None:
+            emit_ok = is_hit & ~(prev_nee & cs.lights_mat_mask[mid])
+        final = torch.where(emit_ok[..., None], final + weight * mat_emission,
+                            final)
+        if nee_fn is not None:
+            delta_nee, s, is_nee_v = nee_fn(params, rec, s, is_hit, weight,
+                                            isect)
+            final = final + delta_nee
 
         # dead/missed lanes match no graph
         gid = torch.where(is_hit, cs.mat_graph[mid], -1)
         out, attenuation, s2 = self._shade_all(params, rec, s, gid)
         s = smp.select_state(is_hit, s2, s)
 
+        # the survival probability is a sampling decision, not a value the
+        # estimator differentiates
         maxc = torch.maximum(attenuation[..., 0],
                              torch.maximum(attenuation[..., 1],
-                                           attenuation[..., 2]))
+                                           attenuation[..., 2])).detach()
         # Russian roulette (pathtrace.c:50-55), gated per lane
         rr_dim, s3 = smp.get_dimension(kind, s)
         s = smp.select_state(is_hit & rr_active, s3, s)
@@ -237,13 +280,28 @@ class WavefrontRenderer:
         weight = torch.where(sv, (attenuation * weight) * coef, weight)
         o = torch.where(sv, p_w, o)
         d = torch.where(sv, out, d)
-        return o, d, weight, final, s, survive
+        if prev_nee is None:
+            return o, d, weight, final, s, survive
+        # NEE requested but no sampleable light table: the plain step with
+        # the NEE signature
+        nee_v = (is_nee_v & survive if nee_fn is not None
+                 else torch.zeros_like(survive))
+        return o, d, weight, final, s, survive, nee_v
 
     def _bounces(self, k, o, d, weight, delta, s, alive, pdepth):
         """k bounces; radiance sums into the per-lane delta. pdepth is the
         per-lane path depth: the per-path bounce cap (prefs.bounces) and
-        the Russian-roulette phase follow each path's own depth."""
+        the Russian-roulette phase follow each path's own depth. With NEE,
+        bit 16 of pdepth carries the previous vertex's NEE flag."""
         for _ in range(k):
+            if self.nee:
+                depth = pdepth & 0xFFFF
+                alive = alive & (depth < self.max_depth)
+                o, d, weight, delta, s, alive, prev = self._step(
+                    o, d, weight, delta, s, alive, depth >= 4,
+                    (pdepth >> 16) > 0)
+                pdepth = (depth + 1) | (prev.to(torch.int32) << 16)
+                continue
             alive = alive & (pdepth < self.max_depth)
             o, d, weight, delta, s, alive = self._step(
                 o, d, weight, delta, s, alive, pdepth >= 4)
@@ -321,6 +379,146 @@ class WavefrontRenderer:
                 o, d, weight, s, alive, lane, pdepth, Bn)
             alive = torch.arange(Bn, device=o.device) < n_alive
         return final
+
+    # ------------------------------------------------------------------
+    # the differentiable trace
+    # ------------------------------------------------------------------
+    def _rr_flags(self):
+        """0-d bool tensors (off, on) of the Russian-roulette phase, made
+        on the device (no host-to-device copy a bounce)."""
+        off = torch.zeros((), dtype=torch.bool, device=self.device)
+        return off, ~off
+
+    def census_schedule(self, xs, ys, spp: int = 4,
+                        depth: int | None = None, safety: float = 1.3,
+                        min_width: int = 1024, passes=None,
+                        quant: int | None = None,
+                        shrink_ratio: float = 1.0):
+        """Measure live-lane counts per bounce depth with the forward
+        integrator and derive a conservative compaction schedule
+        [(start_depth, width), ...] for make_trace_fn(compaction=...).
+
+        Widths are next-pow2(max live over the probed passes x safety), or
+        with `quant` a multiple of quant, at least min_width and at most
+        the batch. A boundary is kept only where the width falls below
+        shrink_ratio x the current one. The sample streams are pure
+        functions of (pass, spp, pixel), so a probe of exactly the passes
+        a trace renders is a true bound for the same params; in an
+        optimisation loop whose params change, keep safety >= 1.3. The
+        trace poisons its result with NaN if live lanes ever exceed a
+        width, rather than dropping paths."""
+        depth = depth if depth is not None else self.max_depth
+        B = xs.shape[0]
+        off, on = self._rr_flags()
+        max_live = np.zeros(depth, np.int64)
+        with torch.no_grad():
+            for p in (range(spp) if passes is None else passes):
+                o, d, s = self._init_rays(xs, ys, int(p), int(spp))
+                weight = o.new_ones(B, 4)
+                final = o.new_zeros(B, 4)
+                alive = torch.ones(B, dtype=torch.bool, device=o.device)
+                for k in range(depth):
+                    o, d, weight, final, s, alive = self._step(
+                        o, d, weight, final, s, alive, on if k >= 4 else off)
+                    n = int(alive.sum())
+                    max_live[k] = max(max_live[k], n)
+                    if n == 0:
+                        break
+        sched = [(0, B)]
+        for k in range(depth):
+            need = max(int(max_live[k] * safety), min_width)
+            if quant:
+                need = -(-need // quant) * quant
+            else:
+                need = _next_pow2(need)
+            need = min(need, B)
+            # a boundary costs a sort or partition and a gather of every
+            # lane at the current width: shrink only where it buys enough
+            if need < sched[-1][1] * shrink_ratio:
+                sched.append((k + 1, need))
+        return sched
+
+    def make_trace_fn(self, depth: int | None = None,
+                      diff_geometry: bool = False, remat=False,
+                      nee: bool = False, compaction=None, sort=False):
+        """A differentiable fixed-depth trace of one pass:
+        trace(params, xs, ys, pass_idx, spp) -> (B, 4) radiance, where
+        params is a ShadeParams whose tensors may require grad.
+        diff_geometry=True returns trace(params, tri_packed, xs, ys,
+        pass_idx, spp) instead, whose gradient also reaches the packed
+        triangle rows (130,560 x 12 on stress_highpoly): the search stays
+        on the scene's geometry, the winners' records recompute from
+        tri_packed (ops/hitrec.py::Isect).
+
+        compaction: a schedule [(start_depth, width), ...] (from
+        census_schedule): from each start depth the wavefront runs at that
+        width, packed live-first (a stable order); radiance flushes into
+        the full-width buffer by lane id (index_add). If live lanes exceed
+        a width the result is NaN. Without a schedule every bounce runs at
+        full width.
+        sort: with a schedule, True re-sorts the live wavefront by the
+        Morton/octant key before every bounce; "boundary" sorts at each
+        boundary and every TRACE_SORT_EVERY bounces inside a segment.
+        Neither changes the image or the gradients beyond summation order.
+        remat: False keeps every bounce's residuals for the backward pass;
+        True recomputes each bounce; "segment" each segment (one bounce
+        without a schedule); "segment_hits" likewise, but the recompute
+        replays the forward's closest-hit searches and records instead of
+        launching K2 and K1 again (torch.utils.checkpoint, non-reentrant;
+        the sampler is explicit PCG state, so a recompute is exact).
+        nee: next-event estimation (ops/nee.py)."""
+        depth = depth if depth is not None else self.max_depth
+        if remat not in (False, True, "segment", "segment_hits"):
+            raise ValueError(f"remat={remat!r}: one of False, True, "
+                             "'segment', 'segment_hits'")
+        if sort not in (False, True, "boundary"):
+            raise ValueError(f"sort={sort!r}: one of False, True, "
+                             "'boundary'")
+        if sort and not compaction:
+            raise ValueError(f"sort={sort!r} sorts the compacted wavefront "
+                             "and needs a compaction schedule")
+        cs = self.cscene
+
+        def _trace(params, tri_packed, xs, ys, pass_idx, spp):
+            B = xs.shape[0]
+            o, d, s = self._init_rays(xs, ys, int(pass_idx), int(spp))
+            if self.empty_scene or depth == 0:
+                if depth == 0:
+                    return o.new_zeros(B, 4)
+                return self.bg_fn(params, d)
+            isect = (self.isect if tri_packed is None
+                     else Isect(cs, tri_packed))
+            weight = o.new_ones(B, 4)
+            final = o.new_zeros(B, 4)
+            alive = torch.ones(B, dtype=torch.bool, device=o.device)
+            prev = torch.zeros_like(alive) if nee else None
+            run = _TraceRun(self, params, isect, depth, nee, remat, sort)
+            if compaction:
+                return run.compacted(compaction, o, d, weight, s, alive,
+                                     prev)
+            return run.plain(o, d, weight, final, s, alive, prev)
+
+        if diff_geometry:
+            return _trace
+
+        def trace(params, xs, ys, pass_idx, spp):
+            return _trace(params, None, xs, ys, pass_idx, spp)
+        return trace
+
+    def trace_rays_fn(self, depth: int | None = None):
+        """trace_rays(params, o, d, s) -> (B, 4) radiance for explicit rays
+        and sampler states (no camera), fixed depth, differentiable in
+        params: the edge-gradient estimator's side evaluations."""
+        depth = depth if depth is not None else self.max_depth
+
+        def trace_rays(params, o, d, s):
+            B = o.shape[0]
+            alive = torch.ones(B, dtype=torch.bool, device=o.device)
+            run = _TraceRun(self, params, self.isect, depth, False, False,
+                            False)
+            return run.plain(o, d, o.new_ones(B, 4), o.new_zeros(B, 4), s,
+                             alive, None)
+        return trace_rays
 
     @property
     def _sched_host(self):
@@ -695,6 +893,155 @@ class WavefrontRenderer:
         pend = np.concatenate([pend, np.asarray(queue.pending, np.int64)])
         return ("interrupted", final.cpu().numpy(), pend,
                 [list(r) for r in queue.ranges])
+
+
+def _take(carry: tuple, order) -> tuple:
+    """Every per-lane tensor (and sampler state) of a carry, gathered by
+    a lane order; None stays None."""
+    return tuple(None if x is None else
+                 x.index(order) if isinstance(x, smp.SamplerState)
+                 else x[order] for x in carry)
+
+
+class _HitTape:
+    """An isect that keeps its searches' detached results (K2's winners
+    and K1's records) on the first run of a checkpointed segment and
+    replays them, in order, on every later run (the backward pass's
+    recompute): the recompute launches neither kernel. The replayed
+    values are those the recompute would compute, so the records (and,
+    for vertex gradients, their autograd Function) are resolved the same
+    way both times."""
+
+    def __init__(self, isect):
+        self.isect = isect
+        self.found: list = []
+        self.replay = None
+
+    def rewind(self) -> None:
+        """Called at the start of each run of the segment."""
+        self.replay = None if not self.found else iter(self.found)
+
+    def __call__(self, geom, o_w, d_w, alive):
+        if self.replay is None:
+            found = self.isect.search(geom, o_w, d_w, alive)
+            self.found.append(found)
+        else:
+            found = next(self.replay)
+        return self.isect.resolve(found, o_w, d_w)
+
+
+class _TraceRun:
+    """One call of a trace made by make_trace_fn: the bounce loop, with
+    its compaction, sorts and remat (the port of the JAX package's _trace
+    scan bodies)."""
+
+    def __init__(self, ren: WavefrontRenderer, params, isect, depth: int,
+                 nee: bool, remat, sort):
+        self.ren = ren
+        self.params = params
+        self.isect = isect
+        self.depth = depth
+        self.nee = nee
+        self.remat = remat
+        self.sort = sort
+        self.rr = ren._rr_flags()
+
+    def bounce(self, k: int, o, d, w, fin, s, al, pv, isect):
+        """Bounce k of the trace: 6 outputs, or 7 with the NEE flag."""
+        return self.ren._step(o, d, w, fin, s, al, self.rr[k >= 4], pv,
+                              self.params, isect)
+
+    def checkpointed(self, fn, *args):
+        """fn(isect, *args) under torch.utils.checkpoint; with
+        remat="segment_hits" its searches are replayed in the recompute."""
+        if self.remat == "segment_hits":
+            tape = _HitTape(self.isect)
+
+            def seg(*a):
+                tape.rewind()
+                return fn(tape, *a)
+        else:
+            def seg(*a):
+                return fn(self.isect, *a)
+        return checkpoint(seg, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def plain(self, o, d, weight, final, s, alive, prev):
+        """Every bounce at full width; remat recomputes each bounce."""
+        def body(isect, k, *carry):
+            out = self.bounce(k, *carry, isect)
+            return out if self.nee else out + (None,)
+
+        carry = (o, d, weight, final, s, alive, prev)
+        for k in range(self.depth):
+            carry = (self.checkpointed(body, k, *carry) if self.remat
+                     else body(self.isect, k, *carry))
+        return carry[3]
+
+    def compacted(self, compaction, o, d, weight, s, alive, prev):
+        ren = self.ren
+        depth = self.depth
+        B = o.shape[0]
+        boundary_sort = self.sort == "boundary"
+        sched = [(ds, min(w, B)) for ds, w in compaction if ds < depth]
+        if not sched or sched[0][0] != 0:
+            sched = [(0, B)] + sched
+        if boundary_sort:
+            # equal-width sort points inside long segments
+            every = ren.TRACE_SORT_EVERY
+            expanded = []
+            for si, (ds, w) in enumerate(sched):
+                de = sched[si + 1][0] if si + 1 < len(sched) else depth
+                expanded += [(ds, w)] + [(k, w) for k in
+                                         range(ds + every, de, every)]
+            sched = expanded
+        bounds = [ds for ds, _ in sched] + [depth]
+
+        def seg_body(isect, k, o, d, w, dl, s, al, ln, pv):
+            if self.sort is True:
+                order = torch.argsort(ren._morton_key(o, d, al), stable=True)
+                o, d, w, dl, s, al, ln, pv = _take(
+                    (o, d, w, dl, s, al, ln, pv), order)
+            out = self.bounce(k, o, d, w, dl, s, al, pv, isect)
+            return out[:6] + (ln, out[6] if self.nee else None)
+
+        def segment(isect, ks, *carry):
+            for k in ks:
+                carry = seg_body(isect, k, *carry)
+            return carry
+
+        final = o.new_zeros(B, 4)
+        lane = torch.arange(B, device=o.device)
+        delta = o.new_zeros(B, 4)
+        for si, (ds, w) in enumerate(sched):
+            if w < alive.shape[0] or (boundary_sort and si > 0):
+                final = final.index_add(0, lane, delta)
+                # truncating live lanes would drop radiance and corrupt
+                # the gradients: poison the result instead (no host sync)
+                overflow = alive.sum() > w
+                final = torch.where(overflow, float("nan"), final)
+                if boundary_sort:
+                    # dead lanes get the max key: a stable argsort is
+                    # live-first and Morton-coherent
+                    order = torch.argsort(ren._morton_key(o, d, alive),
+                                          stable=True)[:w]
+                else:
+                    order = torch.argsort((~alive).to(torch.int8),
+                                          stable=True)[:w]
+                o, d, weight, s, alive, lane, prev = _take(
+                    (o, d, weight, s, alive, lane, prev), order)
+                delta = o.new_zeros(w, 4)
+            carry = (o, d, weight, delta, s, alive, lane, prev)
+            ks = range(ds, bounds[si + 1])
+            if self.remat is True:
+                for k in ks:
+                    carry = self.checkpointed(seg_body, k, *carry)
+            elif self.remat:
+                carry = self.checkpointed(segment, ks, *carry)
+            else:
+                carry = segment(self.isect, ks, *carry)
+            o, d, weight, delta, s, alive, lane, prev = carry
+        return final.index_add(0, lane, delta)
 
 
 def render(cscene: CompiledScene, kind: str = smp.RANDOM,

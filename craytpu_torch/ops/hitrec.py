@@ -1,5 +1,5 @@
 """Hit-record resolution: winner ids -> shading-ready hit data (K1), and
-the closest-hit + resolve pipeline the integrator calls (make_isect_fn).
+the closest-hit + resolve pipeline the integrator calls (Isect).
 
 The counterpart of the reference's hit-record population
 (instance.c:45-60 spheres, instance.c:169-185 + poly.c:37-48 meshes). Per
@@ -62,9 +62,12 @@ def build_wide_rows(tri_packed, tri_shade, tri_mf, inst_A, inst_Ainv,
 
 
 def hitrec_plain(tri_wide, inst_wide, o_w, d_w, t_k, prim, inst,
-                 sphere_uv: bool):
+                 sphere_uv: bool, tri_rows=None):
     """The plain version of K1: (B, 16) records for winner ids (prim,
-    inst) of rays (o_w, d_w), t_k the search distance."""
+    inst) of rays (o_w, d_w), t_k the search distance. tri_rows: each
+    lane's (B, 12) triangle row [v0 e1 e2 n] in place of tri_wide's
+    columns 0:12 (the vertex gradient differentiates the record with
+    respect to it)."""
     B = o_w.shape[0]
     is_hit = inst >= 0
     iw = inst_wide[torch.clamp_min(inst, 0).long()]     # (B, 28)
@@ -74,9 +77,10 @@ def hitrec_plain(tri_wide, inst_wide, o_w, d_w, t_k, prim, inst,
 
     is_sphere = prim < 0
     tw = tri_wide[torch.clamp_min(prim, 0).long()]      # (B, 32)
+    tri_row = tw[:, 0:12] if tri_rows is None else tri_rows
     big = torch.full((B,), FLT_MAX, dtype=torch.float32, device=o_w.device)
     # exact winner recompute (bit-identical to the walk's triangle test)
-    _, t_x, u_x, v_x = isx.tri_intersect(tw[:, 0:12], o_s, d_s, big)
+    _, t_x, u_x, v_x = isx.tri_intersect(tri_row, o_s, d_s, big)
     is_tri = is_hit & ~is_sphere
     _, t_s = isx.sphere_intersect(iw[:, 26], o_s, d_s, big)
     t = torch.where(is_tri, t_x, torch.where(is_sphere & is_hit, t_s, t_k))
@@ -98,7 +102,7 @@ def hitrec_plain(tri_wide, inst_wide, o_w, d_w, t_k, prim, inst,
         vm.fma_raw(tw[:, 15:18], u[..., None], tw[:, 18:21] * v[..., None]))
     flags = tw[:, 28].to(torch.int32)
     has_n = (flags & 1) == 1
-    n_mesh = torch.where(has_n[..., None], n_smooth, tw[:, 9:12])
+    n_mesh = torch.where(has_n[..., None], n_smooth, tri_row[:, 9:12])
     uv_mesh = vm.fma_raw(
         tw[:, 21:23], w[..., None],
         vm.fma_raw(tw[:, 23:25], u[..., None], tw[:, 25:27] * v[..., None]))
@@ -195,19 +199,92 @@ def make_hitrec_fn(tri_wide, inst_wide, sphere_uv: bool):
     return hitrec
 
 
-def make_isect_fn(cscene):
+class _RecordGrad(torch.autograd.Function):
+    """Hit records whose gradient reaches the packed triangle rows: the
+    port of make_hitrec_fn(diff=True) (craytpu/ops/hitrec.py:63-174).
+
+    forward returns the record it is given (K1's on the card: bit-equal to
+    the plain version). backward recomputes each lane's record with the
+    plain ops, with tri_packed's row as the differentiated input, and
+    scatters the row gradients into tri_packed. Only triangle winners take
+    a gradient; the smooth normals and uvs stay on the static tri_wide, as
+    in craytpu. The JAX package has no backward kernel, so none is
+    written here."""
+
+    @staticmethod
+    def forward(ctx, tri_packed, rec, tri_wide, inst_wide, o_w, d_w, t_k,
+                prim, inst, sphere_uv):
+        ctx.save_for_backward(tri_packed, tri_wide, inst_wide, o_w, d_w, t_k,
+                              prim, inst)
+        ctx.sphere_uv = sphere_uv
+        return rec.view_as(rec)
+
+    @staticmethod
+    def backward(ctx, g):
+        tri_packed, tri_wide, inst_wide, o_w, d_w, t_k, prim, inst = \
+            ctx.saved_tensors
+        pr = torch.clamp_min(prim, 0).long()
+        with torch.enable_grad():
+            rows = tri_packed.detach()[pr].requires_grad_()
+            rec = hitrec_plain(tri_wide, inst_wide, o_w, d_w, t_k, prim, inst,
+                               ctx.sphere_uv, tri_rows=rows)
+            (g_rows,) = torch.autograd.grad(rec, rows, g)
+        # lanes whose winner is no triangle take none (their row 0 stand-in
+        # may hold a non-finite intermediate)
+        g_rows = torch.where(((inst >= 0) & (prim >= 0))[:, None], g_rows,
+                             0.0)
+        g_tp = torch.zeros_like(tri_packed).index_add_(0, pr, g_rows)
+        return (g_tp,) + (None,) * 9
+
+
+class Isect:
     """Closest hit (K2) then hit-record resolve (K1):
     isect(geom, o_w, d_w, alive) -> (is_hit, p_w, n_w, uv, mat_id, t).
+
     Each kernel's wrapper picks its plain version for CPU tensors. K2
     reads the scene's KernelLayout, built once per scene at the first
-    launch on the card (a CPU run never builds it)."""
-    hitrec = make_hitrec_fn(cscene.tri_wide, cscene.inst_wide,
-                            cscene.sphere_uv)
+    launch on the card (a CPU run never builds it). Callers pass detached
+    rays: the discrete search takes no gradient.
 
-    def isect(geom, o_w, d_w, alive):
+    tri_packed: the port of craytpu's make_isect_fn(diff=True), for
+    vertex gradients. The search stays on the scene's own geometry (the
+    detached-visibility estimator); the records' forward values come from
+    K1 given tri_wide with its columns 0:12 replaced by tri_packed (rebuilt
+    here, once), and their gradient reaches tri_packed (_RecordGrad).
+
+    `search` and `resolve` split the call, so that a caller can keep
+    search's detached results (K2's winners and K1's records) and resolve
+    them again without launching either kernel."""
+
+    def __init__(self, cscene, tri_packed=None):
+        self.cscene = cscene
+        self.tri_packed = tri_packed
+        self.tri_wide = cscene.tri_wide
+        if tri_packed is not None:
+            self.tri_wide = torch.cat([tri_packed.detach(),
+                                       cscene.tri_wide[:, 12:]],
+                                      1).contiguous()
+
+    def search(self, geom, o_w, d_w, alive) -> tuple:
+        """(t, prim, inst, record) of each ray: the kernels' outputs."""
+        cs = self.cscene
         limit = torch.where(alive, FLT_MAX, 0.0)
-        layout = cscene.layout if o_w.device.type == "cuda" else None
-        hit = trv.closest_hit(geom, o_w, d_w, limit, cscene.tlas_end,
-                              cscene.stack_depth, layout)
-        return hitrec(o_w, d_w, hit.t, hit.prim, hit.inst)[:6]
-    return isect
+        layout = cs.layout if o_w.device.type == "cuda" else None
+        hit = trv.closest_hit(geom, o_w, d_w, limit, cs.tlas_end,
+                              cs.stack_depth, layout)
+        rec = hitrec_record(self.tri_wide, cs.inst_wide, o_w, d_w, hit.t,
+                            hit.prim, hit.inst, cs.sphere_uv)
+        return hit.t, hit.prim, hit.inst, rec
+
+    def resolve(self, found: tuple, o_w, d_w) -> tuple:
+        t_k, prim, inst, rec = found
+        cs = self.cscene
+        tp = self.tri_packed
+        if tp is not None and torch.is_grad_enabled() and tp.requires_grad:
+            rec = _RecordGrad.apply(tp, rec, self.tri_wide, cs.inst_wide,
+                                    o_w, d_w, t_k, prim, inst, cs.sphere_uv)
+        return resolve(rec, self.tri_wide, cs.inst_wide, prim, inst,
+                       cs.sphere_uv)[:6]
+
+    def __call__(self, geom, o_w, d_w, alive):
+        return self.resolve(self.search(geom, o_w, d_w, alive), o_w, d_w)

@@ -173,7 +173,7 @@ def compile_color(ir, reg: Registry):
         # per-material indirection: structurally identical graphs compile
         # once and read their constants through mat_id
         tbl = reg.tensor(ir[1]).long()
-        return lambda p, rec: p.colors[tbl[rec.mat_id.long()]]
+        return lambda p, rec: vm.take_rows(p.colors, tbl[rec.mat_id.long()])
     if kind == "const_color":
         idx = reg.color_idx(ir[1])
         return lambda p, rec: p.colors[idx].expand(_batch(rec), 4)
@@ -252,7 +252,7 @@ def compile_value(ir, reg: Registry):
     kind = ir[0]
     if kind == "param_value":
         tbl = reg.tensor(ir[1]).long()
-        return lambda p, rec: p.values[tbl[rec.mat_id.long()]]
+        return lambda p, rec: vm.take_rows(p.values, tbl[rec.mat_id.long()])
     if kind == "const_value":
         idx = reg.value_idx(ir[1])
         return lambda p, rec: p.values[idx].expand(_batch(rec))
@@ -312,7 +312,8 @@ def compile_vector(ir, reg: Registry):
     kind = ir[0]
     if kind == "param_vec":
         tbl = reg.tensor(ir[1]).long()
-        return lambda p, rec: (p.vecs[tbl[rec.mat_id.long()]], _zeros(rec))
+        return lambda p, rec: (vm.take_rows(p.vecs, tbl[rec.mat_id.long()]),
+                               _zeros(rec))
     if kind == "const_vec":
         idx = reg.vec_idx(ir[1])
         return lambda p, rec: (p.vecs[idx].expand(_batch(rec), 3),

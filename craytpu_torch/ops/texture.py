@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from craytpu_torch.ops import vecmath as vm
+
 
 def pack_rgba_rows(data: np.ndarray) -> np.ndarray:
     """(H, W, C) float texture -> (H*W, 4) RGBA rows (texture.c channel
@@ -45,7 +47,7 @@ def _fetch_internal(texels, meta, xi, yi, active=None):
     row = offset + x + (h - 1 - y) * w
     if active is not None:
         row = torch.where(active, row, offset)
-    return texels[row]
+    return vm.take_rows(texels, row)
 
 
 def fetch_nearest(texels, meta, x, y, active=None):

@@ -44,13 +44,7 @@ def _two_prod(x, y):
     return p, e
 
 
-def exact_div(a, b):
-    """Correctly-rounded f32 division, bit-identical on every device.
-
-    One exact-residual Newton step over the hardware divide: q = a/b,
-    r = a - q*b computed exactly via _two_prod, then q + r/b. Falls back
-    to the raw q when the correction is non-finite (b == 0, infs, or
-    Dekker-split overflow at |x| > ~8e34). NaN lanes stay NaN."""
+def _exact_div(a, b):
     q = a / b
     p, e = _two_prod(q, b)
     r = (a - p) - e
@@ -58,9 +52,7 @@ def exact_div(a, b):
     return torch.where(torch.isfinite(corr), q + corr, q)
 
 
-def exact_sqrt(x):
-    """Correctly-rounded f32 sqrt: s = sqrt(x), r = x - s*s exact, then
-    s + r/(2s). s==0 / inf / NaN fall back to the plain result."""
+def _exact_sqrt(x):
     s = torch.sqrt(x)
     p, e = _two_prod(s, s)
     r = (x - p) - e
@@ -86,11 +78,121 @@ def _fma_pre(a, ha, la, b, hb, lb, c):
     return s + (t + e)
 
 
-def fma_raw(a, b, c):
-    """Unguarded det_fma for bounded intermediates (see _fma_pre)."""
+def _fma_raw(a, b, c):
     ha, la = _split(a)
     hb, lb = _split(b)
     return _fma_pre(a, ha, la, b, hb, lb, c)
+
+
+def _det_fma(a, b, c):
+    p, e = _two_prod(a, b)
+    s = p + c
+    z = s - p
+    t = (p - (s - z)) + (c - z)
+    corr = t + e
+    return torch.where(torch.isfinite(corr), s + corr, a * b + c)
+
+
+# ---- plain-math derivative rules of the four primitives above (the JAX
+# package's custom JVPs, craytpu/ops/vecmath.py:186-212, transposed). The
+# exact forward forms exist for bit parity; their derivatives need no such
+# exactness, and autograd through the Dekker/2Sum bodies would give other
+# gradients and NaNs from the masked fallbacks. The Function is taken only
+# when grad mode is on and an input requires grad, so the forward render
+# pays no extra host time per call. ----
+
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(x) and x.requires_grad for x in xs)
+
+
+def _tensors(*xs):
+    """Python scalars as f32 tensors beside the first tensor operand."""
+    ref = next(x for x in xs if torch.is_tensor(x))
+    return tuple(x if torch.is_tensor(x)
+                 else torch.tensor(x, dtype=torch.float32, device=ref.device)
+                 for x in xs)
+
+
+def _grads(ctx, gs):
+    """Each gradient reduced to its input's broadcast shape (ctx.shapes),
+    None for an input that takes none."""
+    return tuple(g.sum_to_size(shape) if need else None
+                 for need, shape, g in zip(ctx.needs_input_grad, ctx.shapes,
+                                           gs))
+
+
+class _ExactDiv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        q = _exact_div(a, b)
+        ctx.save_for_backward(b, q)
+        ctx.shapes = (a.shape, b.shape)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        b, q = ctx.saved_tensors
+        ga = g / b
+        return _grads(ctx, (ga, q * -ga))
+
+
+class _ExactSqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = _exact_sqrt(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g / (s + s)
+
+
+class _Fma(torch.autograd.Function):
+    """fma_raw (det=False) or det_fma (det=True); d/d(a, b, c) =
+    (b, a, 1)."""
+    @staticmethod
+    def forward(ctx, a, b, c, det):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        return _det_fma(a, b, c) if det else _fma_raw(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return _grads(ctx, (g * b, a * g, g)) + (None,)
+
+
+def exact_div(a, b):
+    """Correctly-rounded f32 division, bit-identical on every device.
+
+    One exact-residual Newton step over the hardware divide: q = a/b,
+    r = a - q*b computed exactly via _two_prod, then q + r/b. Falls back
+    to the raw q when the correction is non-finite (b == 0, infs, or
+    Dekker-split overflow at |x| > ~8e34). NaN lanes stay NaN.
+    Derivative: (g/b, -g*q/b)."""
+    if _wants_grad(a, b):
+        return _ExactDiv.apply(*_tensors(a, b))
+    return _exact_div(a, b)
+
+
+def exact_sqrt(x):
+    """Correctly-rounded f32 sqrt: s = sqrt(x), r = x - s*s exact, then
+    s + r/(2s). s==0 / inf / NaN fall back to the plain result.
+    Derivative: g/(s+s)."""
+    if _wants_grad(x):
+        return _ExactSqrt.apply(x)
+    return _exact_sqrt(x)
+
+
+def fma_raw(a, b, c):
+    """Unguarded det_fma for bounded intermediates (see _fma_pre).
+    Derivative: (g*b, a*g, g)."""
+    if _wants_grad(a, b, c):
+        return _Fma.apply(*_tensors(a, b, c), False)
+    return _fma_raw(a, b, c)
 
 
 def det_fma(a, b, c):
@@ -98,13 +200,51 @@ def det_fma(a, b, c):
     via Knuth 2Sum, one final rounding. (The final s + (t + e) can double-
     round in rare boundary cases, exactly as in the JAX package, so the
     CUDA kernels must not replace it with a hardware fma.) Non-finite
-    corrections fall back to the plain two-rounding chain."""
-    p, e = _two_prod(a, b)
-    s = p + c
-    z = s - p
-    t = (p - (s - z)) + (c - z)
-    corr = t + e
-    return torch.where(torch.isfinite(corr), s + corr, a * b + c)
+    corrections fall back to the plain two-rounding chain.
+    Derivative: (g*b, a*g, g)."""
+    if _wants_grad(a, b, c):
+        return _Fma.apply(*_tensors(a, b, c), True)
+    return _det_fma(a, b, c)
+
+
+# tables of at most this many rows take their gathers' gradient as a
+# one-hot matrix product (the JAX package's K <= 64 rule)
+_ONE_HOT_ROWS = 64
+
+
+class _TakeRows(torch.autograd.Function):
+    """table[idx] whose backward avoids the sort-based scatter of
+    autograd's index backward, which serialises the duplicates of an
+    index: a million lanes that read a few material rows take it tens of
+    ms a call on the card. Small tables sum the gradient by a one-hot
+    matrix product, large ones by index_add_."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        idx = idx.reshape(-1).long()
+        K = ctx.table_shape[0]
+        g2 = g.reshape(idx.shape[0], -1)
+        if K <= _ONE_HOT_ROWS:
+            oh = (idx[:, None] == torch.arange(K, device=idx.device))
+            gt = oh.to(g2.dtype).t() @ g2
+        else:
+            gt = g2.new_zeros(K, g2.shape[1]).index_add_(0, idx, g2)
+        return gt.reshape(ctx.table_shape), None
+
+
+def take_rows(table, idx):
+    """table[idx] for a parameter table (materials, colors, texels) and
+    per-lane row ids; see _TakeRows."""
+    if _wants_grad(table):
+        return _TakeRows.apply(table, idx)
+    return table[idx]
 
 
 def dot3_cray(ax, ay, az, bx, by, bz):

@@ -5,7 +5,8 @@ Flattens all per-mesh BVHs and the TLAS into unified global node arrays
 instances and spheres, builds the global material table, dedups material
 node graphs (the hash-consing analogue), prepares the ShadeParams tables
 and the denormalized hit-record rows (tri_wide, inst_wide) that the
-hit-record kernel gathers from. The closest-hit kernel's own tables
+hit-record kernel gathers from, and the light table next-event
+estimation samples. The closest-hit kernel's own tables
 (`CompiledScene.layout`) are built from the geometry at first use.
 """
 
@@ -22,8 +23,8 @@ from craytpu_torch.ops import shading
 from craytpu_torch.ops import traverse as trv
 from craytpu_torch.ops.camera import CameraHost, make_camera_ray_fn
 from craytpu_torch.ops.hitrec import build_wide_rows
-from craytpu_torch.scene.device import (Geometry, ShadeGeom, INST_MESH,
-                                        INST_SPHERE)
+from craytpu_torch.scene.device import (Geometry, LightTable, ShadeGeom,
+                                        INST_MESH, INST_SPHERE)
 from craytpu_torch.scene.types import Prefs, SceneHost
 from craytpu_torch.utils.torchsetup import resolve_device
 
@@ -51,6 +52,14 @@ class CompiledScene:
     inst_wide: torch.Tensor       # (I, 28) f32 hit-record instance rows
     sphere_uv: bool               # does any sphere material read uv?
     device: torch.device
+    # next-event estimation (ops/nee.py): the emitters it samples (None if
+    # none), the materials the table covers (K,) bool, the NEE-eligible
+    # (opaque diffuse) materials (K,) bool, and graph id -> the color IR of
+    # each diffuse graph (its albedo)
+    lights: LightTable | None
+    lights_mat_mask: torch.Tensor
+    mat_nee: torch.Tensor
+    diffuse_color_ir: dict
 
     @cached_property
     def layout(self) -> trv.KernelLayout:
@@ -153,6 +162,120 @@ def _reads_uv(ir) -> bool:
             return True
         return any(_reads_uv(x) for x in ir)
     return False
+
+
+def _light_table(scene, materials, emission, sphere_mat_ids, inst_A,
+                 sph_radius, tri_packed, tri_base, tri_mat):
+    """The NEE light table (host numpy; craytpu/scene/compile.py:409-491):
+    every world-space entity whose legacy material emission is non-zero,
+    matching what pathtrace.c:44 adds along BSDF paths. Returns (arrays
+    "lights.<field>" with L rows, lights_mat_mask (K,) bool)."""
+    lt_kind, lt_mat, lt_p0, lt_e1, lt_e2, lt_n, lt_area = \
+        [], [], [], [], [], [], []
+    # materials whose emissive instance the table cannot sample (a
+    # non-uniformly scaled sphere is an ellipsoid under the reference's
+    # transformed-ray semantics; uniform-area sphere sampling would bias
+    # it). ALL lights of such a material are dropped, and the integrator's
+    # post-NEE emission suppression skips them via lights_mat_mask.
+    excluded_mats: set = set()
+    for i, inst in enumerate(scene.instances):
+        A4 = inst_A[i]
+        if inst.kind == INST_SPHERE:
+            m = sphere_mat_ids[inst.obj_index]
+            if np.any(emission[m][:3] != 0.0):
+                M = np.asarray(A4[:, :3], np.float64)
+                MtM = M.T @ M
+                s2 = float(np.trace(MtM)) / 3.0
+                if not np.allclose(MtM, s2 * np.eye(3),
+                                   rtol=1e-4, atol=1e-6 * max(s2, 1.0)):
+                    excluded_mats.add(int(m))
+                    continue
+                c = A4[:, 3]
+                rw = float(sph_radius[inst.obj_index]
+                           * np.linalg.norm(A4[:, 0]))
+                lt_kind.append(1)
+                lt_mat.append(m)
+                lt_p0.append(c)
+                lt_e1.append([rw, 0, 0])
+                lt_e2.append([0, 0, 0])
+                lt_n.append([0, 0, 1])
+                lt_area.append(4.0 * np.pi * rw * rw)
+        elif inst.kind == INST_MESH:
+            mi = inst.obj_index
+            n = scene.meshes[mi].tri_vidx.shape[0] if \
+                scene.meshes[mi].tri_vidx is not None else 0
+            if n == 0:
+                continue
+            t0 = tri_base[mi]
+            tm = tri_mat[t0:t0 + n]
+            em = np.any(emission[tm][:, :3] != 0.0, axis=1)
+            if not em.any():
+                continue
+            rows = tri_packed[t0:t0 + n][em]
+            v0 = rows[:, 0:3]
+            v1 = v0 - rows[:, 3:6]
+            v2 = rows[:, 6:9] + v0
+            R, T = A4[:, :3], A4[:, 3]
+            w0 = v0 @ R.T + T
+            w1 = v1 @ R.T + T
+            w2 = v2 @ R.T + T
+            e1w = w1 - w0
+            e2w = w2 - w0
+            cr = np.cross(e1w, e2w)
+            ar = 0.5 * np.linalg.norm(cr, axis=1)
+            nrm = cr / np.maximum(np.linalg.norm(cr, axis=1,
+                                                 keepdims=True), 1e-20)
+            for j in range(rows.shape[0]):
+                if ar[j] <= 0:
+                    continue
+                lt_kind.append(0)
+                lt_mat.append(int(tm[em][j]))
+                lt_p0.append(w0[j])
+                lt_e1.append(e1w[j])
+                lt_e2.append(e2w[j])
+                lt_n.append(nrm[j])
+                lt_area.append(float(ar[j]))
+    keep = [j for j in range(len(lt_kind))
+            if int(lt_mat[j]) not in excluded_mats]
+    # the materials the table covers: the post-NEE emission suppression
+    # must only suppress THESE; an emitter absent from the table gets its
+    # direct light via BSDF paths instead
+    lights_mat_mask = np.zeros(max(len(materials), 1), bool)
+    for j in keep:
+        lights_mat_mask[int(lt_mat[j])] = True
+
+    def col(v, dtype, width=None):
+        shape = (len(keep),) if width is None else (len(keep), width)
+        return np.asarray([v[j] for j in keep], dtype).reshape(shape)
+
+    lights = {"lights.kind": col(lt_kind, I), "lights.mat": col(lt_mat, I),
+              "lights.p0": col(lt_p0, F, 3), "lights.e1": col(lt_e1, F, 3),
+              "lights.e2": col(lt_e2, F, 3), "lights.n": col(lt_n, F, 3),
+              "lights.area": col(lt_area, F)}
+    return lights, lights_mat_mask
+
+
+def _nee_unwrap(ir):
+    """(color IR, opaque) of a NEE-eligible material graph: a plain diffuse
+    lobe, or the loader's opaque alpha wrapper mix(transparent, diffuse,
+    alpha(const a=1)) (nodegraph.append_alpha / material.c:58-65), whose
+    transparent branch has probability 0 at a=1. (None, None) otherwise."""
+    if not isinstance(ir, tuple) or not ir:
+        return None, None
+    if ir[0] == "diffuse":
+        return ir[1], True
+    if (ir[0] == "mix" and len(ir) == 4 and isinstance(ir[1], tuple)
+            and ir[1] and ir[1][0] == "transparent"
+            and isinstance(ir[2], tuple) and ir[2]
+            and ir[2][0] == "diffuse"):
+        fac = ir[3]
+        opaque = (isinstance(fac, tuple) and len(fac) == 2
+                  and fac[0] == "alpha"
+                  and isinstance(fac[1], tuple)
+                  and fac[1][0] == "const_color"
+                  and float(fac[1][1][3]) == 1.0)
+        return ir[2][1], opaque
+    return None, None
 
 
 def compile_scene(scene: SceneHost, device=None) -> CompiledScene:
@@ -325,6 +448,19 @@ def compile_scene(scene: SceneHost, device=None) -> CompiledScene:
         tri_packed, tri_shade, tri_mf, inst_A, inst_Ainv, inst_offset,
         inst_kind, inst_obj, sph_mat, sph_radius)
 
+    lights, lights_mat_mask = _light_table(
+        scene, materials, emission, sphere_mat_ids, inst_A, sph_radius,
+        tri_packed, tri_base, tri_mat)
+    mat_nee = np.zeros(max(len(materials), 1), bool)
+    for k, m in enumerate(materials):
+        _, opaque = _nee_unwrap(m.bsdf_ir)
+        mat_nee[k] = bool(opaque) and not np.any(emission[k][:3] != 0.0)
+    diffuse_color_ir = {}
+    for gi, g in enumerate(graphs):
+        cir, _ = _nee_unwrap(g)
+        if cir is not None:
+            diffuse_color_ir[gi] = cir
+
     arrays = {
         "geom.node_bounds": node_bounds, "geom.node_child": node_child,
         "geom.node_count": node_count, "geom.prim_idx": prim_idx,
@@ -340,13 +476,16 @@ def compile_scene(scene: SceneHost, device=None) -> CompiledScene:
         "prefs": scene.prefs, "tlas_end": int(tlas.node_count),
         "stack_depth": int(stack_depth), "n_instances": n_inst,
         "max_leaf_tris": max_leaf_tris, "max_leaf_inst": max_leaf_inst,
-        "sphere_uv": bool(sphere_uv),
+        "sphere_uv": bool(sphere_uv), **lights,
+        "lights_mat_mask": lights_mat_mask, "mat_nee": mat_nee,
+        "diffuse_color_ir": diffuse_color_ir,
     }
     return _assemble(arrays, params, reg, device)
 
 
 _STATIC = ("graphs", "bg_ir", "camera", "prefs", "tlas_end", "stack_depth",
-           "n_instances", "max_leaf_tris", "max_leaf_inst", "sphere_uv")
+           "n_instances", "max_leaf_tris", "max_leaf_inst", "sphere_uv",
+           "diffuse_color_ir")
 
 
 def _assemble(arrays: dict, params, reg, device) -> CompiledScene:
@@ -356,11 +495,14 @@ def _assemble(arrays: dict, params, reg, device) -> CompiledScene:
     def group(cls, prefix):
         return cls(*(t(arrays[f"{prefix}.{f.name}"]) for f in fields(cls)))
 
+    lights = group(LightTable, "lights")
     return CompiledScene(
         geom=group(Geometry, "geom"), shade=group(ShadeGeom, "shade"),
         params=params, mat_graph=t(arrays["mat_graph"]), reg=reg,
         tri_wide=t(arrays["tri_wide"]), inst_wide=t(arrays["inst_wide"]),
-        device=device, **{k: arrays[k] for k in _STATIC})
+        device=device, lights=lights if lights.count else None,
+        lights_mat_mask=t(arrays["lights_mat_mask"]),
+        mat_nee=t(arrays["mat_nee"]), **{k: arrays[k] for k in _STATIC})
 
 
 def scene_arrays(cs: CompiledScene) -> dict:
@@ -368,9 +510,17 @@ def scene_arrays(cs: CompiledScene) -> dict:
     and registry keys: the input scene_from_arrays takes."""
     out = {f"geom.{k}": v for k, v in cs.geom.numpy().items()}
     out.update({f"shade.{k}": v for k, v in cs.shade.numpy().items()})
+    lights = cs.lights.numpy() if cs.lights is not None else {
+        f.name: np.zeros((0,) + ((3,) if f.name in ("p0", "e1", "e2", "n")
+                                 else ()),
+                         I if f.name in ("kind", "mat") else F)
+        for f in fields(LightTable)}
+    out.update({f"lights.{k}": v for k, v in lights.items()})
     out.update({f"params.{f.name}": getattr(cs.params, f.name).cpu().numpy()
                 for f in fields(cs.params)})
     out.update(mat_graph=cs.mat_graph.cpu().numpy(),
+               lights_mat_mask=cs.lights_mat_mask.cpu().numpy(),
+               mat_nee=cs.mat_nee.cpu().numpy(),
                tri_wide=cs.tri_wide.cpu().numpy(),
                inst_wide=cs.inst_wide.cpu().numpy(), reg=cs.reg.keys())
     out.update({k: getattr(cs, k) for k in _STATIC})
@@ -382,8 +532,10 @@ def scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
     e.g. copies of another compile of the same scene (the JAX package's
     CompiledScene), so both packages run on identical data. Keys: as
     scene_arrays returns them ("geom.<field>", "shade.<field>",
-    "params.<field>", mat_graph, tri_wide, inst_wide, the static fields,
-    and "reg": the registry's constant keys in slot order)."""
+    "params.<field>", "lights.<field>" (zero rows when the scene has no
+    light), mat_graph, tri_wide, inst_wide, lights_mat_mask, mat_nee, the
+    static fields, and "reg": the registry's constant keys in slot
+    order)."""
     device = resolve_device(device)
     k = arrays["reg"]
     reg = shading.Registry.from_keys(k["colors"], k["values"], k["vecs"],

@@ -73,3 +73,20 @@ class Hit:
     #                     offset origin (reference parametrization)
     prim: torch.Tensor  # i32 global triangle id, or -1 for sphere hits
     inst: torch.Tensor  # i32 instance id, -1 = miss
+
+
+@dataclass
+class LightTable(_Tensors):
+    """World-space emitters that next-event estimation samples
+    (ops/nee.py): L = number of entities."""
+    kind: torch.Tensor   # (L,) i32: 0 triangle, 1 sphere
+    mat: torch.Tensor    # (L,) i32 global material id
+    p0: torch.Tensor     # (L, 3) f32: triangle v0 or sphere centre
+    e1: torch.Tensor     # (L, 3) f32: triangle v1 - v0, or [radius, 0, 0]
+    e2: torch.Tensor     # (L, 3) f32: triangle v2 - v0
+    n: torch.Tensor      # (L, 3) f32 triangle unit normal
+    area: torch.Tensor   # (L,) f32
+
+    @property
+    def count(self) -> int:
+        return int(self.kind.shape[0])

@@ -118,7 +118,7 @@ def test_cli_preview_progressive(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--worker"], 15), (["--nodes", "localhost:2222"], 15),
-    (["--shutdown"], 15), (["--preview-http"], 15), (["--nee"], 13),
+    (["--shutdown"], 15), (["--preview-http"], 15),
     (["--trace"], 16), (["--test"], 15), (["--tcount"], 15),
     (["--ptcount"], 15), (["--test-perf"], 15)])
 def test_later_item_flags_exit(flags, item, capsys):
@@ -126,6 +126,20 @@ def test_later_item_flags_exit(flags, item, capsys):
         cli.main([SCENE] + flags, device="cpu")
     assert e.value.code != 0
     assert f"ROADMAP.md item {item}" in capsys.readouterr().err
+
+
+def test_cli_nee_renders(port_png, tmp_path, monkeypatch):
+    """--nee renders through next-event estimation on the CPU: a PNG
+    within the golden thresholds of craytpu's --nee PNG, and not the
+    plain render's."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(ARGS + ["--nee"], device="cpu") == 0
+    got = read_png_rgb(PNG)
+    assert got.shape == (24, 32, 3)
+    assert not np.array_equal(got, read_png_rgb(port_png))
+    os.rename(PNG, "port_nee.png")
+    assert jmain.main(ARGS + ["--nee"]) == 0
+    assert_png_close("port_nee.png", PNG)
 
 
 def test_help(capsys):

@@ -272,9 +272,11 @@ def test_checkpoint_resumes_across_packages(pair, writer, tmp_path,
     assert_golden_close(got, pair["tref"] if dst is tr else pair["jref"])
 
 
-def test_nee_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_renderer(nee=True)
+def test_nee_renderer_builds():
+    """WavefrontRenderer(nee=True) builds, with the scene's light table."""
+    r = port_renderer(nee=True)
+    assert r.nee and r.nee_fn is not None
+    assert not port_renderer().nee
 
 
 def test_tile_rays_from_environment(monkeypatch):

@@ -45,7 +45,17 @@ def jax_arrays(cs) -> dict:
     out.update({f"params.{k}": np.asarray(v)
                 for k, v in cs.params._asdict().items()})
     dm = cs.dense_meta
+    lights = dm["lights"] or {
+        "kind": np.zeros(0, np.int32), "mat": np.zeros(0, np.int32),
+        "p0": np.zeros((0, 3), np.float32), "e1": np.zeros((0, 3), np.float32),
+        "e2": np.zeros((0, 3), np.float32), "n": np.zeros((0, 3), np.float32),
+        "area": np.zeros(0, np.float32)}
+    out.update({f"lights.{k}": np.asarray(v) for k, v in lights.items()
+                if k != "count"})
     out.update(mat_graph=np.asarray(cs.mat_graph),
+               lights_mat_mask=np.asarray(dm["lights_mat_mask"]),
+               mat_nee=np.asarray(dm["mat_nee"]),
+               diffuse_color_ir=dm["diffuse_color_ir"],
                tri_wide=np.asarray(dm["tri_wide"]),
                inst_wide=np.asarray(dm["inst_wide"]),
                sphere_uv=dm["sphere_uv"], graphs=cs.graphs, bg_ir=cs.bg_ir,
@@ -61,6 +71,10 @@ def jax_arrays(cs) -> dict:
 def ir_equal(a, b) -> bool:
     """Structural equality of material IRs (param tables are arrays)."""
     seq = (tuple, list)
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys()
+                and all(ir_equal(a[k], b[k]) for k in a))
     if isinstance(a, seq) or isinstance(b, seq):
         return (isinstance(a, seq) and isinstance(b, seq)
                 and len(a) == len(b)
@@ -75,7 +89,7 @@ def assert_same(want: dict, got: dict):
         if k in ("camera", "prefs"):
             continue
         g = got[k]
-        if k in ("graphs", "bg_ir"):
+        if k in ("graphs", "bg_ir", "diffuse_color_ir"):
             assert ir_equal(v, g), k
         elif isinstance(v, np.ndarray):
             assert g.dtype == v.dtype and g.shape == v.shape, \
