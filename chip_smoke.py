@@ -74,6 +74,28 @@ Phases (any failure exits non-zero and prints no result line):
                turns with the frame without NEE; and `python3 -m
                craytpu_torch assets/stress_highpoly.json -s 4 -d
                1920x1080 --nee` (exit 0, a 1920x1080 PNG).
+  8. edge    — edge-aware silhouette gradients and the inverse-rendering
+               train step. Finite differences on the scenes of
+               tests/test_edge_grad.py (32x24, 48 passes, 64 samples an
+               edge, h=0.04) and tests/test_edge_occluder.py (64x48, 32
+               passes, h=0.05), each over fresh compile_scene calls of
+               the moved vertex: fails unless AD with the boundary term
+               (make_edge_grad_fn) is within rtol 0.3 of FD with its sign
+               and the interior estimator alone misses FD by more than
+               0.5 |FD|. The secondary term (make_edge_grad2_fn) on
+               tests/test_edge_secondary.py's scene (32x24, 24 passes,
+               h=0.1): AD, FD and their ratio, which must be finite.
+               Then parallel/shard.py::make_train_step on the first 2^20
+               pixels of the 1080p stress_highpoly frame, 12 bounces,
+               target 0.8 x a render of them: a geometry step
+               (edge_samples=32) and a material step, each timed as the
+               mean of 2 after a warm-up (synchronised through the loss),
+               with its peak device memory, K2/K1 launches (counts set to
+               0 just before one step and read just after) and moved
+               tables; for the geometry step also the boundary backward's
+               time (synchronised around it) and launches, its silhouette
+               samples of E x S and side rays, the tri_packed rows moved,
+               and a profiled step.
 Then one line {"kernels": [...]} and, last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
@@ -1111,6 +1133,266 @@ def phase_nee(torch, kernels: dict, cs) -> None:
           f"{img.shape}", flush=True)
 
 
+# the scenes of tests/test_edge_grad.py, tests/test_edge_occluder.py and
+# tests/test_edge_secondary.py: OBJ/MTL files and scene JSON (copied)
+_QUAD = ("v -1.4 -1.1 0.8\nv 1.4 -1.1 0.8\nv 1.4 1.1 0.8\nv -1.4 1.1 0.8\n"
+         "vt 0.5 0.5\nvn 0 0 -1\nusemtl bright\n"
+         "f 1/1/1 2/1/1 3/1/1\nf 1/1/1 3/1/1 4/1/1\n")
+_BRIGHT = "newmtl bright\nKd 0.85 0.85 0.85\nillum 2\n"
+EDGE_FILES = {
+    "tri": {"tri.obj": "mtllib tri.mtl\nv -0.8 -0.6 0.0\nv 0.8 -0.6 0.0\n"
+                       "v 0.0 0.7 0.0\nvt 0.5 0.5\nvn 0 0 -1\nusemtl dark\n"
+                       "f 1/1/1 2/1/1 3/1/1\n",
+            "tri.mtl": "newmtl dark\nKd 0.12 0.12 0.12\nillum 2\n"},
+    "occ": {"quad.obj": "mtllib quad.mtl\n" + _QUAD, "quad.mtl": _BRIGHT,
+            "occ.obj": "mtllib occ.mtl\nv -0.55 -0.4 0.0\nv 0.55 -0.4 0.0\n"
+                       "v 0.0 0.5 0.0\nvt 0.5 0.5\nvn 0 0 -1\nusemtl dark\n"
+                       "f 1/1/1 2/1/1 3/1/1\n",
+            "occ.mtl": "newmtl dark\nKd 0.08 0.08 0.08\nillum 2\n"},
+    "sec": {"wall.obj": "mtllib wall.mtl\n" + _QUAD, "wall.mtl": _BRIGHT,
+            "occ.obj": "mtllib occ.mtl\nv 1.4 -0.8 0.0\nv 2.4 -0.8 0.0\n"
+                       "v 1.4 0.9 0.0\nvt 0.5 0.5\nvn 0 0 -1\nusemtl dark\n"
+                       "f 1/1/1 2/1/1 3/1/1\n",
+            "occ.mtl": "newmtl dark\nKd 0.05 0.05 0.05\nillum 2\n"},
+}
+
+
+def edge_scene(name: str, width: int, height: int) -> dict:
+    """tri: one dark triangle against a bright constant ambient; occ: a
+    dark occluder triangle over a bright receiver quad (two meshes); sec:
+    a bright wall and a dark occluder outside the camera's frustum."""
+    amb = 0.9 if name == "tri" else 0.65
+    inst = [{"transforms": [{"type": "translate", "x": 0, "y": 0, "z": 0}]}]
+    objs = [f for f in EDGE_FILES[name] if f.endswith(".obj")]
+    return {
+        "renderer": {"samples": 2, "bounces": 2, "width": width,
+                     "height": height},
+        "camera": {"FOV": 60.0, "transforms": [
+            {"type": "translate", "x": 0, "y": 0, "z": -2.0}]},
+        "scene": {
+            "ambientColor": {"down": {"r": amb, "g": amb, "b": amb},
+                             "up": {"r": amb, "g": amb, "b": amb}},
+            "meshes": [{"fileName": f, "bsdf": "lambertian",
+                        "instances": inst} for f in objs]}}
+
+
+def edge_fd(torch, name: str, width: int, height: int, passes: int,
+            samples: int, h: float, secondary: bool = False) -> dict:
+    """AD of the frame's mean radiance (depth 2, `passes` passes) in the x
+    of the last triangle's first vertex, with the boundary term
+    (make_edge_grad_fn, or make_edge_grad2_fn if secondary) and without,
+    and its central finite difference over fresh compile_scene calls of
+    the scene with the vertex moved by +-h (as the JAX package's tests
+    take it: the mesh BVHs stay those of the load)."""
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import edge_grad as eg
+    from craytpu_torch.ops import vecmath as vm
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.scene.sceneloader import load_scene_from_buf
+
+    d = os.path.join(REPO, "build", "chip_smoke", f"edge_{name}")
+    os.makedirs(d, exist_ok=True)
+    for fname, text in EDGE_FILES[name].items():
+        with open(os.path.join(d, fname), "w") as f:
+            f.write(text)
+    host = load_scene_from_buf(json.dumps(edge_scene(name, width, height)),
+                               d + "/")
+    cs = compile_scene(host)
+    r = WavefrontRenderer(cs)
+    xs, ys = pixel_grid(torch, r)
+    trace = r.make_trace_fn(2, diff_geometry=True)
+    make = eg.make_edge_grad2_fn if secondary else eg.make_edge_grad_fn
+    boundary = make(cs, host, r, depth=2, samples_per_edge=samples)
+    tp0 = cs.geom.tri_packed
+    row = tp0.shape[0] - 1
+    base = tp0[row]
+    v1 = base[0:3] - base[3:6]
+    v2 = base[6:9] + base[0:3]
+    # the vertex's global index: the last mesh's first vertex
+    vid = int(host.meshes[-1].tri_vidx[0, 0])
+
+    def ad(with_boundary: bool) -> float:
+        x = base[0].clone().requires_grad_()
+        for p in range(passes):
+            v0 = torch.stack([x, base[1], base[2]])
+            e1, e2 = v0 - v1, v2 - v0
+            # the JAX package's tests pack the normal with jnp.cross, and
+            # the secondary test with the reference-rounded cross
+            n = (vm.vcross(e1, e2) if secondary
+                 else torch.linalg.cross(e1, e2, dim=-1))
+            tp = torch.cat([tp0[:row], torch.cat([v0, e1, e2, n])[None]])
+            img = trace(cs.params, tp, xs, ys, p, passes)
+            if with_boundary:
+                img = img + boundary(cs.params, tp, p, passes)
+            (img[..., :3].mean() / passes).backward()
+        return float(x.grad)
+
+    def frame_loss(x: float) -> float:
+        verts = host.vertices.copy()
+        host.vertices[vid, 0] = x
+        try:
+            rr = WavefrontRenderer(compile_scene(host))
+        finally:
+            host.vertices = verts
+        tr = rr.make_trace_fn(2)
+        with torch.no_grad():
+            return sum(float(tr(rr.cscene.params, xs, ys, p,
+                                passes)[..., :3].mean())
+                       for p in range(passes)) / passes
+
+    x0 = float(base[0])
+    if abs(float(host.vertices[vid, 0]) - x0) > 1e-6:
+        fail(f"edge {name}: vertex {vid} is not the packed row's v0")
+    t0 = time.perf_counter()
+    out = {"ad": ad(True), "ad_interior": ad(False),
+           "fd": (frame_loss(x0 + h) - frame_loss(x0 - h)) / (2 * h)}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_edge(torch, kernels: dict, cs, host) -> None:
+    """Phase 8: edge-aware silhouette gradients and the inverse-rendering
+    train step (cs: stress_highpoly compiled at 1080p; host: its loaded
+    scene)."""
+    from dataclasses import fields
+
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import edge_grad as eg
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.parallel import shard
+
+    # FD gates of the JAX package's tests (tests/test_edge_grad.py,
+    # tests/test_edge_occluder.py): AD with the boundary term within rtol
+    # 0.3 of FD and of its sign; the interior estimator alone off by more
+    # than 0.5 |FD|
+    for name, w, hgt, passes, h in (("tri", 32, 24, 48, 0.04),
+                                    ("occ", 64, 48, 32, 0.05)):
+        res = edge_fd(torch, name, w, hgt, passes, 64, h)
+        ad, fd, ai = res["ad"], res["fd"], res["ad_interior"]
+        ok = (abs(fd - ai) > 0.5 * abs(fd) and np.sign(ad) == np.sign(fd)
+              and abs(ad - fd) <= 0.3 * abs(fd))
+        print(f"edge FD {name} {w}x{hgt} {passes} passes, 64 samples an "
+              f"edge, h={h}: AD {ad:.6f}, AD interior only {ai:.6f}, FD "
+              f"{fd:.6f}; AD/FD {ad / fd:.4f}; ok={ok} ({res['s']:.1f} s)",
+              flush=True)
+        if not ok:
+            fail(f"edge FD {name}: the boundary gradient misses FD")
+    # the secondary term on tests/test_edge_secondary.py's scene: reported
+    res = edge_fd(torch, "sec", 32, 24, 24, 16, 0.1, secondary=True)
+    ad, fd = res["ad"], res["fd"]
+    print(f"edge FD sec (secondary term) 32x24 24 passes, 16 samples an "
+          f"edge, h=0.1: AD {ad:.6f}, AD interior only "
+          f"{res['ad_interior']:.6f}, FD {fd:.6f}; AD/FD "
+          f"{ad / fd if fd else float('nan'):.4f} (reported, not a gate; "
+          f"{res['s']:.1f} s)", flush=True)
+    if not (np.isfinite(ad) and np.isfinite(fd)):
+        fail("edge FD sec: AD or FD is not finite")
+
+    # the train step at full width: the first 2^20 pixels of the 1080p
+    # tile schedule, target 0.8 x a render of them
+    ren = WavefrontRenderer(cs)
+    xs_all, ys_all, _, _ = ren._pixel_schedule
+    S = 32
+    B = min(1 << 20, xs_all.shape[0])
+    xs, ys = xs_all[:B], ys_all[:B]
+    theta0 = (cs.params, cs.geom.tri_packed)
+    k2, k1 = trv.closest_hit, hr.hitrec_record
+    bwd = {"s": 0.0, "k2": 0, "k1": 0}
+    orig_bwd = eg._Boundary.backward
+
+    def timed_bwd(ctx, gbar):
+        torch.cuda.synchronize()
+        n2, n1, t0 = k2.launches, k1.launches, time.perf_counter()
+        out = orig_bwd(ctx, gbar)
+        torch.cuda.synchronize()
+        bwd["s"] += time.perf_counter() - t0
+        bwd["k2"] += k2.launches - n2
+        bwd["k1"] += k1.launches - n1
+        return out
+
+    for geometry in (True, False):
+        what = "geometry" if geometry else "material"
+        with torch.no_grad():
+            target = shard.make_sharded_render_fn(ren)(
+                cs.params, xs, ys, 7)[..., :3] * 0.8
+        step, init = shard.make_train_step(
+            ren, learning_rate=5e-3, geometry=geometry, scene=host,
+            edge_samples=S)
+        theta = theta0 if geometry else cs.params
+        state = init(theta)
+
+        def run(th, st):
+            th, st, loss = step(th, st, xs, ys, target, 0)
+            return th, st, float(loss)
+        theta, state, _ = run(theta, state)               # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            theta, state, loss = run(theta, state)
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        # one more step, counted: K2/K1 launches (counts set to 0 just
+        # before, read just after), the boundary's samples, and the
+        # boundary backward timed alone (synchronised around it)
+        eg.STATS.update(dict.fromkeys(eg.STATS, 0))
+        eg._Boundary.backward = staticmethod(timed_bwd)
+        try:
+            t0 = time.perf_counter()
+            (th2, _, loss2), n_k2, n_k1 = counted(
+                torch, lambda: run(theta, state))
+            sec_c = time.perf_counter() - t0
+        finally:
+            eg._Boundary.backward = orig_bwd
+        if n_k2 == 0 or n_k1 == 0:
+            fail(f"train step ({what}) launched closest_hit {n_k2}x, "
+                 f"hitrec {n_k1}x")
+        params2 = th2[0] if geometry else th2
+        leaves = [getattr(params2, f.name) for f in fields(params2)]
+        leaves += [th2[1]] if geometry else []
+        finite = all(bool(torch.isfinite(x).all()) for x in leaves) \
+            and np.isfinite(float(loss2))
+        moved_tables = [f.name for f in fields(params2) if bool(
+            (getattr(params2, f.name) != getattr(cs.params, f.name)).any())]
+        line = (f"train step ({what}) stress_highpoly B={B} "
+                f"{ren.max_depth} bounces, lr 5e-3: "
+                f"{' '.join(f'{x:.3f}' for x in secs)} s -> "
+                f"{float(np.mean(secs)):.3f} s a step (mean of 2), "
+                f"{B / float(np.mean(secs)):.0f} paths/s; loss {loss:.6f}; "
+                f"peak device memory {peak / 2**30:.3f} GiB; launches per "
+                f"step closest_hit {n_k2}, hitrec {n_k1}; tables moved "
+                f"{moved_tables}; finite={finite}")
+        if geometry:
+            rows = int((th2[1] != theta[1]).any(1).sum())
+            st = eg.STATS
+            line += (f"; tri_packed rows moved {rows} of "
+                     f"{th2[1].shape[0]}; boundary backward "
+                     f"{bwd['s']:.3f} s of the counted step's {sec_c:.3f} s "
+                     f"({100 * bwd['s'] / sec_c:.1f}%), {st['backward']} "
+                     f"call(s), launches closest_hit {bwd['k2']}, hitrec "
+                     f"{bwd['k1']}; silhouette samples {st['silhouette']} of"
+                     f" E x S = {st['samples'] // S} x {S} = "
+                     f"{st['samples']} "
+                     f"({100 * st['silhouette'] / max(st['samples'], 1):.2f}"
+                     f"%), "
+                     f"side rays traced {st['side_rays']}")
+            if rows == 0 or st["backward"] == 0 or bwd["k2"] == 0:
+                fail("train step (geometry): no row moved or the boundary "
+                     "traced no side ray")
+            for name, n in (("closest_hit", n_k2), ("hitrec", n_k1)):
+                kernels[name]["launches_train_step"] = n
+            kernels["closest_hit"]["launches_edge_backward"] = bwd["k2"]
+            kernels["hitrec"]["launches_edge_backward"] = bwd["k1"]
+        print(line, flush=True)
+        if not finite or not moved_tables:
+            fail(f"train step ({what}): non-finite values or no table moved")
+        if geometry:
+            print_frame_profile(torch, lambda: run(theta, state))
+        del step, theta, state, th2, target
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1136,10 +1418,11 @@ def main() -> int:
     phase_render(torch, kernels)
     phase_persistent(torch, kernels)
     from craytpu_torch.scene.compile import compile_scene
-    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
-                                                "samples": SPP}))
+    host = load("stress_highpoly", {"width": W, "height": H, "samples": SPP})
+    cs = compile_scene(host)
     phase_grad(torch, kernels, cs)
     phase_nee(torch, kernels, cs)
+    phase_edge(torch, kernels, cs, host)
     print(json.dumps({"kernels": [kernels["closest_hit"],
                                   kernels["hitrec"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
