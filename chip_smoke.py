@@ -96,6 +96,35 @@ Phases (any failure exits non-zero and prints no result line):
                time (synchronised around it) and launches, its silhouette
                samples of E x S and side rays, the tri_packed rows moved,
                and a profiled step.
+  9. cluster — the TCP cluster on this card: `python3 -m craytpu_torch
+               --worker <free port>` as a subprocess (killed in a finally);
+               both stress goldens at 80x50, 4 spp, through
+               render_clustered with the master and the worker; then
+               stress_highpoly at 1920x1080, its 64x64 tiles and 12
+               bounces, one session: one tile pass is timed first and the
+               largest spp of {4, 2, 1} whose frames fit about 100 s is
+               run, the master alone (clients=[]) and master + worker in
+               turns; each frame equal to render_pass's (rtol=2e-6,
+               atol=2e-7); paths/s, tiles done by each side, the worker's
+               ms a tile from its stats push, the K2/K1 launches of the
+               first master-alone frame (counts set to 0 just before, read
+               just after), the persistent frame's paths/s for scale; last,
+               `python3 -m craytpu_torch --shutdown --nodes` and the worker
+               exits 0 within 30 s.
+  10. tools  — at 1920x1080 on stress_highpoly, 4 spp: the persistent
+               frame with a PreviewServer (ephemeral port) fed through
+               on_frame, in turns with the frame without it, status.json
+               and frame.png fetched during the render (the PNG decodes to
+               1080x1920); the CLI with --trace in a subprocess (the trace
+               names closest_hit_kernel and hitrec_kernel; its size and the
+               CLI's wall time); CRAYTPU_DEBUG=1: the clean per-pass frame
+               bit-equal to the frame without it, the persistent frame
+               within rtol=2e-5, atol=2e-6 (values that differ reported),
+               their times, a NaN albedo and an out-of-range id raise;
+               CRAYTPU_POOL_STATS=1: the step, refill and shrink counts
+               equal phase 5's, and with CRAYTPU_POOL_SYNC=1 each phase's
+               wall time; `--test-perf` prints its five lines and
+               `--tcount` a positive count.
 Then one line {"kernels": [...]} and, last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
@@ -564,8 +593,9 @@ def count_pool_calls(ren) -> dict:
     return calls
 
 
-def phase_persistent(torch, kernels: dict) -> None:
-    """Phase 5: the CLI's path, the persistent pool, on the card."""
+def phase_persistent(torch, kernels: dict) -> dict:
+    """Phase 5: the CLI's path, the persistent pool, on the card. Returns
+    the persistent 1080p frame's pool calls (count_pool_calls)."""
     from craytpu_torch.io.png import read_png_rgb
     from craytpu_torch.models.wavefront_pt import WavefrontRenderer
     from craytpu_torch.ops import hitrec as hr
@@ -691,6 +721,7 @@ def phase_persistent(torch, kernels: dict) -> None:
               f"{' '.join(f'{x:.0f}' for x in v)}", flush=True)
     print_frame_profile(torch, lambda: ren.render_persistent(SPP,
                                                              fetch=False))
+    return calls
 
 
 # the scenes of tests/test_grad.py, tests/test_vertex_grad.py and
@@ -1393,6 +1424,476 @@ def phase_edge(torch, kernels: dict, cs, host) -> None:
         torch.cuda.empty_cache()
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_env() -> dict:
+    return dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def start_worker_process(log_path: str):
+    """`python3 -m craytpu_torch --worker <free port>` on this card, once
+    it accepts connections: (process, port). Its output goes to log_path."""
+    import socket
+    port = free_port()
+    log = open(log_path, "wb")
+    proc = subprocess.Popen([sys.executable, "-m", "craytpu_torch",
+                             "--worker", str(port)], cwd=REPO, env=cli_env(),
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 120:
+        if proc.poll() is not None:
+            break
+        try:
+            # an empty session: the worker logs the hang-up and goes on
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return proc, port
+        except OSError:
+            time.sleep(0.2)
+    proc.kill()
+    fail(f"worker did not listen (exit {proc.poll()}): {tail(log_path)}")
+
+
+def tail(path: str, n: int = 3000) -> str:
+    with open(path, "rb") as f:
+        return f.read()[-n:].decode(errors="replace")
+
+
+def cluster_session(name: str, overrides: dict, node: str):
+    """Load a scene as the CLI's master does (its assets recorded) and
+    ship it to the worker at `node`: (scene, scene renderer, clients)."""
+    from craytpu_torch.parallel import cluster
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.scene.sceneloader import load_scene_from_buf
+    from craytpu_torch.utils import fileio
+    path = os.path.join(REPO, "assets", f"{name}.json")
+    assets = fileio.start_recording()
+    text = fileio.load_file(path, text=True)
+    asset_path = os.path.dirname(path) + "/"
+    scene = load_scene_from_buf(text, asset_path, overrides)
+    fileio.stop_recording()
+    clients = cluster.sync_with_clients(node, text, asset_path, assets,
+                                        overrides)
+    if len(clients) != 1:
+        fail(f"cluster {name}: the worker at {node} did not load the scene")
+    return scene, make_renderer(compile_scene(scene)), clients
+
+
+class TileCount:
+    """Counts the tiles this process renders through cluster.render_tile
+    (the master's share), while installed."""
+
+    def __init__(self):
+        from craytpu_torch.parallel import cluster
+        self.cluster, self.orig, self.n = cluster, cluster.render_tile, 0
+
+        def counted(*a):
+            self.n += 1
+            return self.orig(*a)
+        cluster.render_tile = counted
+
+    def close(self):
+        self.cluster.render_tile = self.orig
+
+
+def clustered_frame(torch, scene, r, clients, spp):
+    """One render_clustered frame: (frame, wall s, master tiles, the
+    worker's last (completed, avg ms) stats push or None)."""
+    from craytpu_torch.parallel import cluster
+    stats = {}
+    count = TileCount()
+    try:
+        t0 = time.perf_counter()
+        fb = cluster.render_clustered(
+            scene, r, clients, spp,
+            on_stats=lambda n, c, avg: stats.update(last=(c, avg)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        count.close()
+    return fb, secs, count.n, stats.get("last")
+
+
+def phase_cluster(torch, kernels: dict) -> None:
+    """Phase 9: the TCP cluster on one card (master plus a worker
+    process, against the master alone)."""
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.parallel import cluster
+    from craytpu_torch.runtime.tile import quantize_image
+    from craytpu_torch.utils import golden
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    log = os.path.join(out_dir, "worker.log")
+    t0 = time.perf_counter()
+    proc, port = start_worker_process(log)
+    node = f"127.0.0.1:{port}"
+    print(f"cluster: worker pid {proc.pid} listening on {node} after "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        # ---- the golden gate through the cluster path, master + worker
+        for name in ("stress_highpoly", "stress_instances"):
+            scene, r, clients = cluster_session(
+                name, {"width": 80, "height": 50, "samples": 4}, node)
+            fb, secs, mine, _ = clustered_frame(torch, scene, r, clients, 4)
+            for _, sock in clients:
+                sock.close()
+            ok, within, mean_abs = golden.compare(fb, name, 80, 50, 4)
+            n_tiles = len(quantize_image(80, 50, 64, 64))
+            print(f"cluster golden {name} 80x50 4spp (master + worker, "
+                  f"tiles {mine} master / {n_tiles - mine} worker): "
+                  f"within1lsb={within:.5f} mean_abs={mean_abs:.4f} ok={ok}",
+                  flush=True)
+            if not ok:
+                fail(f"cluster golden {name}")
+
+        # ---- the 1080p frame: one session, a startRender a frame
+        t1 = time.perf_counter()
+        scene, r, clients = cluster_session(
+            "stress_highpoly", {"width": W, "height": H, "samples": SPP},
+            node)
+        p = scene.prefs
+        tw, th = min(p.tile_width, W), min(p.tile_height, H)
+        tiles = quantize_image(W, H, tw, th, p.tile_order)
+        print(f"cluster: 1080p scene shipped and loaded by the worker in "
+              f"{time.perf_counter() - t1:.1f} s; {len(tiles)} tiles of "
+              f"{tw}x{th}, {r.max_depth} bounces", flush=True)
+        t_dict = {"begin_x": tiles[0].begin_x, "begin_y": tiles[0].begin_y,
+                  "end_x": tiles[0].end_x, "end_y": tiles[0].end_y}
+        cluster.render_tile(r, t_dict, 1, tw, th)               # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            cluster.render_tile(r, t_dict, 1, tw, th)
+        torch.cuda.synchronize()
+        tile_s = (time.perf_counter() - t1) / 3
+        # the largest spp of {4, 2, 1} whose frames (about 3.2 master-alone
+        # frames' time for the turns below) stay under 100 s
+        est = {s: tile_s * len(tiles) * s for s in (4, 2, 1)}
+        spp = next((s for s in (4, 2, 1) if 3.2 * est[s] <= 100.0), 1)
+        turns = (["alone", "worker", "worker", "alone"]
+                 if 3.2 * est[spp] <= 100.0 else ["alone", "worker"])
+        print(f"cluster: one {tw}x{th} tile pass {tile_s * 1e3:.2f} ms -> a "
+              f"master-alone frame about {est[spp]:.1f} s at {spp} spp; "
+              f"running {spp} spp (of the scene's {SPP}), turns {turns}",
+              flush=True)
+
+        torch.cuda.synchronize()
+        acc = torch.zeros((H, W, 4), device="cuda")
+        for p_i in range(spp):
+            acc = r.render_pass(acc, p_i, spp)
+        want = acc.cpu().numpy()
+        rates = {"alone": [], "worker": []}
+        for kind in turns:
+            cl = [] if kind == "alone" else clients
+            counting = kind == "alone" and not rates["alone"]
+            if counting:
+                trv.closest_hit.launches = 0
+                hr.hitrec_record.launches = 0
+            fb, secs, mine, st = clustered_frame(torch, scene, r, cl, spp)
+            if counting:
+                n_k2 = trv.closest_hit.launches
+                n_k1 = hr.hitrec_record.launches
+                kernels["closest_hit"]["launches_cluster"] = n_k2
+                kernels["hitrec"]["launches_cluster"] = n_k1
+            err = float(np.max(np.abs(fb - want)))
+            if not np.allclose(fb, want, rtol=2e-6, atol=2e-7):
+                fail(f"clustered frame ({kind}) differs from render_pass: "
+                     f"max |d| {err}")
+            rates[kind].append(W * H * spp / secs)
+            line = (f"cluster frame ({kind}) {W}x{H} {spp}spp: {secs:.2f} s, "
+                    f"{W * H * spp / secs:.0f} paths/s; tiles {mine} master"
+                    f" / {len(tiles) - mine} worker")
+            if st is not None:
+                line += (f"; worker stats push: {st[0]} tiles, "
+                         f"{st[1]:.2f} ms a tile")
+            if counting:
+                line += f"; launches closest_hit {n_k2}, hitrec {n_k1}"
+            print(line + f"; max |d| to render_pass {err:.3e}", flush=True)
+            if kind == "alone" and mine != len(tiles) or \
+                    kind == "worker" and mine == len(tiles):
+                fail(f"cluster frame ({kind}): the master rendered {mine} "
+                     f"of {len(tiles)} tiles")
+        for _, sock in clients:
+            sock.close()
+        frame_persistent(torch, r)                            # warm-up
+        pers = [W * H * SPP / frame_persistent(torch, r) for _ in range(2)]
+        alone, both = (" ".join(f"{x:.0f}" for x in rates[k])
+                       for k in ("alone", "worker"))
+        print(f"cluster paths/s: master alone {alone}; master + worker "
+              f"{both}; ratio of medians "
+              f"{np.median(rates['worker']) / np.median(rates['alone']):.3f}; "
+              f"persistent frame ({SPP}spp, for scale) "
+              f"{' '.join(f'{x:.0f}' for x in pers)}", flush=True)
+
+        # ---- --shutdown --nodes ends the worker with exit 0
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "craytpu_torch",
+                              "--shutdown", "--nodes", node], cwd=REPO,
+                             env=cli_env(), capture_output=True, text=True,
+                             timeout=120)
+        if res.returncode != 0:
+            fail(f"--shutdown exited {res.returncode}: {res.stderr[-2000:]}")
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            fail("the worker did not exit within 30 s of --shutdown")
+        if rc != 0:
+            fail(f"the worker exited {rc}: {tail(log)}")
+        print(f"cluster: --shutdown --nodes {node}: worker exited 0 "
+              f"{time.perf_counter() - t1:.1f} s after the command started",
+              flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def turns_rates(torch, frames: dict, rounds: int = 2) -> dict:
+    """paths/s of each frame function in turns (a, b, b, a), `rounds`
+    times: {name: [paths/s, ...]}."""
+    a, b = frames
+    rates = {a: [], b: []}
+    for _ in range(rounds):
+        for kind in (a, b, b, a):
+            rates[kind].append(W * H * SPP / frames[kind]())
+    return rates
+
+
+def fmt_rates(rates: dict) -> str:
+    return "; ".join(f"{k}: median {float(np.median(v)):.0f} (all "
+                     f"{' '.join(f'{x:.0f}' for x in v)})"
+                     for k, v in rates.items())
+
+
+# tests/test_debug.py's scene (copied: this script imports nothing of the
+# tests, which import jax)
+DEBUG_SCENE = {
+    "renderer": {"samples": 1, "bounces": 4, "width": 16, "height": 12},
+    "camera": {"FOV": 70.0, "transforms": [
+        {"type": "translate", "x": 0, "y": 0, "z": -4}]},
+    "scene": {
+        "ambientColor": {"down": {"r": 0.2, "g": 0.2, "b": 0.2},
+                         "up": {"r": 0.6, "g": 0.6, "b": 0.8}},
+        "primitives": [
+            {"type": "sphere", "radius": 1.2,
+             "color": {"r": 0.7, "g": 0.3, "b": 0.2},
+             "bsdf": "lambertian",
+             "instances": [{"transforms": [
+                 {"type": "translate", "x": 0, "y": 0, "z": 0}]}]},
+        ],
+    },
+}
+
+
+def phase_tools(torch, pool_calls: dict) -> None:
+    """Phase 10: the live preview, --trace, debug mode, pool statistics
+    and test dispatch, at 1080p on stress_highpoly (pool_calls: phase
+    5's pool steps, refills and shrinks of the same frame)."""
+    import threading
+    import urllib.request
+    from dataclasses import replace
+
+    from craytpu_torch.io.png import decode_png_rgb
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops.hitrec import Isect
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    from craytpu_torch.runtime.preview import PreviewServer, frame_hook
+    from craytpu_torch.scene.compile import compile_scene
+
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    ren = make_renderer(cs)
+    plain = ren.render_persistent(SPP)                        # warm-up
+
+    # ---- preview: a PreviewServer fed through on_frame, in turns with the
+    # frame without it; status.json and frame.png fetched during the render
+    # (every 0.1 s until the first frame.png, then once a second, as the
+    # page does)
+    srv = PreviewServer(W, H, port=0)
+    base = srv.start()
+    got = {"status": 0, "png": None, "png_done": 0}
+
+    def previewed():
+        done = threading.Event()
+
+        def poll():
+            while not done.is_set():
+                with urllib.request.urlopen(base + "status.json",
+                                            timeout=30) as resp:
+                    s = json.loads(resp.read())
+                got["status"] += 1
+                if s["version"] >= 1 and got["png"] is None:
+                    with urllib.request.urlopen(base + "frame.png",
+                                                timeout=30) as resp:
+                        got["png"], got["png_done"] = resp.read(), s["done"]
+                done.wait(0.1 if got["png"] is None else 1.0)
+        t = threading.Thread(target=poll, daemon=True)
+        t.start()
+        try:
+            t0 = time.perf_counter()
+            ren.render_persistent(SPP, fetch=False,
+                                  on_frame=frame_hook(srv, ren, SPP))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            done.set()
+            t.join(timeout=60)
+
+    try:
+        rates = turns_rates(torch, {"without": lambda: frame_persistent(
+            torch, ren), "preview": previewed})
+    finally:
+        srv.stop()
+    if got["png"] is None:
+        fail("preview: no frame.png was served during the renders")
+    img = decode_png_rgb(got["png"])
+    if img.shape != (H, W, 3) or not img.max() > 0:
+        fail(f"preview frame.png: shape {img.shape}, max {img.max()}")
+    print(f"preview {W}x{H} {SPP}spp persistent frame, paths/s in turns: "
+          f"{fmt_rates(rates)}; preview/without medians "
+          f"{np.median(rates['preview']) / np.median(rates['without']):.3f}; "
+          f"{got['status']} status.json fetches; frame.png "
+          f"{len(got['png'])} B at {got['png_done']} paths done decodes to "
+          f"{img.shape}", flush=True)
+
+    # ---- --trace: the CLI under torch.profiler
+    tdir = os.path.join(REPO, "build", "chip_smoke", "trace")
+    os.makedirs(tdir, exist_ok=True)
+    cmd = [sys.executable, "-m", "craytpu_torch",
+           os.path.join(REPO, "assets", "stress_highpoly.json"), "-s",
+           str(SPP), "-d", f"{W}x{H}", "--trace", "trc"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=tdir, env=cli_env(), capture_output=True,
+                         text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    path = os.path.join(tdir, "trc", "stress_highpoly_trace.json")
+    if res.returncode != 0 or not os.path.exists(path):
+        fail(f"--trace CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    with open(path, "rb") as f:
+        blob = f.read()
+    names = {k: blob.count(v.encode()) for k, v in KERNEL_NAMES.items()}
+    if not all(names.values()):
+        fail(f"--trace: the trace does not name both kernels: {names}")
+    done = [ln for ln in res.stdout.splitlines() if "Finished" in ln]
+    print(f"trace: CLI {' '.join(cmd[3:])}: exit 0 in {cli_s:.1f} s "
+          f"(process start, scene load, profiler start and export "
+          f"included); {done[-1] if done else ''}; trace "
+          f"{len(blob) / 1e6:.1f} MB, kernel events "
+          f"{names}", flush=True)
+    del blob
+
+    # ---- debug mode: the clean frame unchanged, its cost; a NaN albedo
+    # and an out-of-range id raise. The per-pass frame is held bit for bit.
+    # The persistent frame is held at the resume tolerance: its flushes
+    # add the radiance of two passes of one pixel in one index_add_, whose
+    # atomics add in no fixed order, so a few values differ in their last
+    # bits from run to run (scripts/torch_repro.py).
+    os.environ["CRAYTPU_DEBUG"] = "1"
+    try:
+        dbg = make_renderer(cs)
+        if not dbg._debug:
+            fail("CRAYTPU_DEBUG=1 did not turn debug mode on")
+        secs = {}
+        frames = {}
+        for name, r_, fn in (("per-pass", ren, "render"),
+                             ("per-pass debug", dbg, "render"),
+                             ("persistent debug", dbg, "render_persistent"),
+                             ("persistent", ren, "render_persistent")):
+            t0 = time.perf_counter()
+            frames[name] = getattr(r_, fn)(SPP)
+            secs[name] = time.perf_counter() - t0
+        bits = {k: int((frames[k].view(np.uint32)
+                        != frames[f"{k} debug"].view(np.uint32)).sum())
+                for k in ("per-pass", "persistent")}
+        if bits["per-pass"] or not np.allclose(
+                frames["persistent debug"], plain, rtol=2e-5, atol=2e-6):
+            fail(f"debug mode changed the clean frame: {bits} values differ")
+        small = load_buf(DEBUG_SCENE)
+        colors = small.params.colors.clone()
+        colors[:, 0] = float("nan")
+        small.params = replace(small.params, colors=colors)
+        try:
+            WavefrontRenderer(small).render(1)
+            fail("debug mode: a NaN albedo did not raise")
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        isect = Isect(small)
+        o = torch.zeros((4, 3), device="cuda")
+        d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device="cuda")
+        t_k, prim, inst, rec = isect.search(
+            small.geom, o, d, torch.ones(4, dtype=torch.bool, device="cuda"))
+        try:
+            isect.resolve((t_k, prim, inst + 7, rec), o, d)
+            fail("debug mode: an out-of-range id did not raise")
+        except IndexError as e:
+            id_msg = str(e)
+    finally:
+        del os.environ["CRAYTPU_DEBUG"]
+    print(f"debug: CRAYTPU_DEBUG=1 frame s (without / with): per-pass "
+          f"{secs['per-pass']:.2f} / {secs['per-pass debug']:.2f}, "
+          f"persistent {secs['persistent']:.2f} / "
+          f"{secs['persistent debug']:.2f}; values that differ from the "
+          f"frame without debug: per-pass {bits['per-pass']}, persistent "
+          f"{bits['persistent']} (of {frames['persistent'].size}); NaN "
+          f"albedo raised: {nan_msg}; bad id raised: {id_msg}", flush=True)
+
+    # ---- pool statistics: the counts equal phase 5's; per-phase walls
+    os.environ["CRAYTPU_POOL_STATS"] = "1"
+    try:
+        ren.render_persistent(SPP, fetch=False)
+        st = ren.pool_stats
+        want = (pool_calls["_pool_step"], pool_calls["_flush_pack_refill"]
+                + pool_calls["_flush_pack_refill_host"],
+                pool_calls["_pack_shrink"])
+        if (st["steps"], st["refills"], st["shrinks"]) != want:
+            fail(f"pool stats {st['steps']}/{st['refills']}/{st['shrinks']} "
+                 f"differ from phase 5's counts {want}")
+        os.environ["CRAYTPU_POOL_SYNC"] = "1"
+        t0 = time.perf_counter()
+        ren.render_persistent(SPP, fetch=False)
+        sync_s = time.perf_counter() - t0
+        ws = ren.pool_stats["phase_wall_s"]
+    finally:
+        os.environ.pop("CRAYTPU_POOL_STATS", None)
+        os.environ.pop("CRAYTPU_POOL_SYNC", None)
+    print(f"pool stats (CRAYTPU_POOL_STATS=1): {st['steps']} steps, "
+          f"{st['refills']} refills, {st['shrinks']} shrinks (= phase 5), "
+          f"occupancy {st['occupancy']:.3f}, "
+          f"{st['bounces_per_path']:.3f} lane-bounces a path; "
+          f"CRAYTPU_POOL_SYNC=1 frame {sync_s:.2f} s: step "
+          f"{ws['step']:.3f} s, refill {ws['refill']:.3f} s, shrink "
+          f"{ws['shrink']:.3f} s", flush=True)
+
+    # ---- test dispatch: --test-perf and --tcount
+    for flags, check in ((["--test-perf"], lambda out: len(
+            [ln for ln in out.splitlines() if "[perf]" in ln]) == 5),
+            (["--tcount"], lambda out: out.strip().splitlines()[-1].isdigit()
+             and int(out.strip().splitlines()[-1]) > 0)):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "craytpu_torch"] + flags,
+                             cwd=REPO, env=cli_env(), capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0 or not res.stdout.strip() \
+                or not check(res.stdout):
+            fail(f"{flags[0]} exited {res.returncode}: {res.stdout[-2000:]}"
+                 f" {res.stderr[-2000:]}")
+        lines = [ln.split("] ", 2)[-1] for ln in res.stdout.splitlines()
+                 if "[perf]" in ln or "leaving out" in ln] + (
+            [] if flags[0] == "--test-perf"
+            else [f"count {res.stdout.strip().splitlines()[-1]}"])
+        print(f"{flags[0]}: exit 0 in {time.perf_counter() - t0:.1f} s: "
+              f"{' | '.join(lines)}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1416,13 +1917,17 @@ def main() -> int:
     kernels = phase_kernels(torch)
     phase_golden(torch)
     phase_render(torch, kernels)
-    phase_persistent(torch, kernels)
+    pool_calls = phase_persistent(torch, kernels)
     from craytpu_torch.scene.compile import compile_scene
     host = load("stress_highpoly", {"width": W, "height": H, "samples": SPP})
     cs = compile_scene(host)
     phase_grad(torch, kernels, cs)
     phase_nee(torch, kernels, cs)
     phase_edge(torch, kernels, cs, host)
+    del cs, host
+    torch.cuda.empty_cache()
+    phase_cluster(torch, kernels)
+    phase_tools(torch, pool_calls)
     print(json.dumps({"kernels": [kernels["closest_hit"],
                                   kernels["hitrec"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

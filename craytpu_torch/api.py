@@ -1,11 +1,12 @@
 """Public API — the `crXxx` surface of the reference (src/c-ray.h:1-104)
-as a Renderer object.
+as a Renderer object plus module-level functions for drop-in parity.
 
 The reference drives a process-global renderer; we keep an explicit object
-but mirror its operations: load scene (file/buf), getter/setter pairs for
-samples / bounces / tile dims / image dims / output path, start renderer,
-write image. The renderer runs on `device` (CUDA unless the caller passes
-"cpu").
+but mirror every operation: initialize, load scene (file/buf), getter/setter
+pairs for thread count / samples / bounces / tile dims / image dims /
+output path, start renderer, abort, write image. Worker mode is the CLI's
+`--worker` (parallel/cluster.py::start_worker). The renderer runs on
+`device` (CUDA unless the caller passes "cpu").
 """
 
 from __future__ import annotations
@@ -30,8 +31,18 @@ class Renderer:
     overrides: dict = field(default_factory=dict)
     interactive: bool = False
     device: Optional[str] = None  # None = CUDA
+    _aborted: bool = False
 
     # ---- prefs get/set (c-ray.c:170-268) ----
+    def thread_count(self):
+        return self.scene.prefs.threads if self.scene else 0
+
+    def set_thread_count(self, n: int, from_system: bool = False):
+        """Stored in the prefs only: the wavefront renderer is
+        card-parallel, not thread-parallel."""
+        self.scene.prefs.threads = n
+        self.scene.prefs.from_system = from_system
+
     def sample_count(self):
         return self.scene.prefs.sample_count
 
@@ -88,16 +99,24 @@ class Renderer:
         from craytpu_torch.models import wavefront_pt
         from craytpu_torch.ops import sampler as smp
         t0 = time.perf_counter()
+        self._aborted = False
         self.compiled = compile_scene(self.scene, self.device)
         kind = smp.HALTON if self.interactive else smp.RANDOM
-        self.framebuffer = wavefront_pt.render(self.compiled, kind=kind,
-                                               progress=progress)
+        self.framebuffer = wavefront_pt.render(
+            self.compiled, kind=kind, progress=progress,
+            stop=lambda: self._aborted)
         self.render_time_ms = (time.perf_counter() - t0) * 1e3
         logging.info("Finished render in %s",
                      logging.smart_time(self.render_time_ms))
 
     def current_image(self) -> Optional[np.ndarray]:
         return self.framebuffer
+
+    def abort(self):
+        """crRendererAbort: start_renderer ends after the pass under way
+        (from a progress callback or another thread); the framebuffer is
+        the mean of the passes done."""
+        self._aborted = True
 
     # ---- output (c-ray.c:85-111) ----
     def write_image(self) -> str:
@@ -122,3 +141,12 @@ class Renderer:
             write_png(path, self.framebuffer, meta)
         logging.info("Wrote %s", path)
         return path
+
+
+def initialize() -> Renderer:
+    """crInitialize + crInitRenderer."""
+    return Renderer()
+
+
+def get_version() -> str:
+    return REFERENCE_VERSION

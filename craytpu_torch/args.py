@@ -7,9 +7,7 @@ file (with the `.json`-appending fallback), `-j/-s/-d/-t` overrides,
 `--test/--test-perf/--tcount/--ptcount/--suite` test dispatch, `-v`, and the
 reference's catch-all rule that any unknown `-flag` becomes a queryable
 boolean tag. Results land in a flat dict (the "constants database",
-hashtable.c:191-217 — a Python dict is that component). The flags of
-modules the port does not have yet parse here and are refused by
-main.py with the ROADMAP.md item that brings them.
+hashtable.c:191-217 — a Python dict is that component).
 """
 
 from __future__ import annotations
@@ -26,15 +24,26 @@ Options:
   -t <w>x<h>     Tile dimension override
   -v             Enable verbose mode
   --iterative    Progressive render (Halton sampler, whole-frame passes)
+  --worker [p]   Start a render worker on TCP port p (default 2222)
+  --nodes <list> Use worker processes at comma-separated addresses
+  --shutdown     Ask workers on --nodes to shut down
   --resume <f>   Resume a render from a checkpoint file
-  --preview [n]  Write a preview PNG every n passes
   --nee          Next-event estimation (explicit light sampling)
-  Not ported yet (each exits with the ROADMAP.md item that brings it):
-  --worker [p], --nodes <list>, --shutdown, --preview-http [port]
-                 (item 15), --trace [dir] (item 16),
-                 --test [n], --test-perf, --tcount, --ptcount (item 15)
+  --preview [n]  Write a preview PNG every n passes
+  --preview-http [port]  Live render view at http://127.0.0.1:<port>/
+                 (a bare flag serves on port 8650)
+  --trace [dir]  Profile the render (torch.profiler, CPU and CUDA) into
+                 a Chrome trace JSON in dir (default output/trace)
+  --test [n]     Run the port's tests (tests/test_torch_*.py) via pytest
+  --tcount       Print test count
+  --ptcount      Print test count (same as --tcount)
+  --test-perf    Run the host-side performance microtests
+  --suite <s>    Select tests (pytest -k) or perf tests by name prefix
   Empty input reads the scene JSON from stdin.
   CRAYTPU_PLATFORM=cpu runs on the CPU (the default is the CUDA card).
+  CRAYTPU_DEBUG=1 checks every bounce for non-finite values and every
+  hit id for its range; CRAYTPU_POOL_STATS=1 (and CRAYTPU_POOL_SYNC=1)
+  prints the persistent pool's accounting (and per-phase wall times).
 """
 
 

@@ -62,11 +62,16 @@ def write_png(path: str, framebuffer: np.ndarray, metadata: dict | None = None,
 
 
 def read_png_rgb(path: str) -> np.ndarray:
-    """Decode an 8-bit RGB (colour type 2), non-interlaced PNG into
-    (H, W, 3) uint8 rows, top first. Undoes filter types 0-4. Standard
-    library only; raises ValueError on any other PNG form."""
+    """Decode an 8-bit RGB (colour type 2), non-interlaced PNG file into
+    (H, W, 3) uint8 rows, top first (decode_png_rgb)."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_png_rgb(f.read(), path)
+
+
+def decode_png_rgb(buf: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode the bytes of an 8-bit RGB (colour type 2), non-interlaced
+    PNG into (H, W, 3) uint8 rows, top first. Undoes filter types 0-4.
+    Standard library only; raises ValueError on any other PNG form."""
     if buf[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG")
     pos, idat, hdr = 8, [], None

@@ -42,6 +42,8 @@ Per-(pixel, pass) semantics match the reference exactly:
 from __future__ import annotations
 
 import os
+import sys
+import time
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -55,6 +57,7 @@ from craytpu_torch.ops.hitrec import Isect
 from craytpu_torch.ops.nee import make_nee_fn
 from craytpu_torch.runtime.checkpoint import GidQueue
 from craytpu_torch.scene.compile import CompiledScene
+from craytpu_torch.utils.torchsetup import debug_enabled
 
 
 def _next_pow2(n: int) -> int:
@@ -126,6 +129,82 @@ def _count_value(handle) -> int:
     return int(buf)
 
 
+class _PoolStats:
+    """CRAYTPU_POOL_STATS=1: the persistent loop's accounting (the JAX
+    package's, wavefront_pt.py:1369-1390 and :1601-1620): pool steps,
+    refills and shrinks, average occupancy and lane-bounces a path, and a
+    histogram of dispatches by kind and width. Occupancy is the lagged
+    live count, an upper bound. CRAYTPU_POOL_SYNC=1 (profiling only) adds
+    each phase's wall time: the device is synchronised after every
+    dispatch, and the time from before the dispatch to the end of the
+    synchronisation counts, so the host's launch time is in it. The sync
+    stops the pipelining, so a frame under it is not a speed figure."""
+
+    def __init__(self, on: bool, sync: bool, device):
+        self.on = on
+        self.sync = on and sync
+        self.device = device
+        self.count = {"step": 0, "refill": 0, "shrink": 0}
+        self.wall = {"step": 0.0, "refill": 0.0, "shrink": 0.0}
+        self.hist: dict = {}
+        self.occ_sum = 0
+        self.lane_bounces = 0
+        self.t_start = time.perf_counter()
+        self._t0 = 0.0
+
+    def start(self) -> None:
+        """Before a dispatch."""
+        if self.sync:
+            self._t0 = time.perf_counter()
+
+    def add(self, phase: str, key, n: int = 1, live: int = 0,
+            k: int = 0) -> None:
+        """After the dispatch of n `phase`s (step, refill or shrink); a
+        step of k bounces over `live` lanes adds to occupancy. Under
+        CRAYTPU_POOL_SYNC, synchronise and add its wall time."""
+        if not self.on:
+            return
+        self.count[phase] += n
+        self.hist[key] = self.hist.get(key, 0) + n
+        self.occ_sum += live
+        self.lane_bounces += live * k
+        if not self.sync:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - self._t0
+        self.wall[phase] += dt
+        skey = key + ("s",)
+        self.hist[skey] = self.hist.get(skey, 0.0) + dt
+
+    def report(self, B: int, total: int) -> dict:
+        """Print the report to stderr; return it as a dict."""
+        wall = time.perf_counter() - self.t_start
+        n_steps = max(self.count["step"], 1)
+        out = {"wall_s": wall, "steps": self.count["step"],
+               "refills": self.count["refill"],
+               "shrinks": self.count["shrink"],
+               "occupancy": self.occ_sum / n_steps / B,
+               "lane_bounces": self.lane_bounces,
+               "bounces_per_path": self.lane_bounces / max(total, 1),
+               "hist": dict(self.hist)}
+        print(f"pool stats: {wall:.2f}s wall, {out['steps']} step "
+              f"dispatches (avg occupancy {out['occupancy']:.2f}), "
+              f"{out['refills']} refills, {out['shrinks']} shrinks, "
+              f"{self.lane_bounces / 1e6:.1f}M lane-bounces "
+              f"({out['bounces_per_path']:.2f}/path)", file=sys.stderr)
+        if self.sync:
+            out["phase_wall_s"] = dict(self.wall)
+            print(f"  phase wall: step {self.wall['step']:.2f}s  refill "
+                  f"{self.wall['refill']:.2f}s  shrink "
+                  f"{self.wall['shrink']:.2f}s", file=sys.stderr)
+        for hk in sorted(self.hist, key=str):
+            v = self.hist[hk]
+            print(f"  {hk}: " + (f"{v:.3f}s" if isinstance(v, float)
+                                 else str(v)), file=sys.stderr)
+        return out
+
+
 class WavefrontRenderer:
     """Render pipeline for one compiled scene + sampler kind, on the
     scene's device."""
@@ -166,6 +245,10 @@ class WavefrontRenderer:
         self.bsdf_fns = cscene.bsdf_fns(kind)
         self.empty_scene = cscene.n_instances == 0
         self.isect = Isect(cscene)
+        # CRAYTPU_DEBUG: every bounce step checks its outputs (_check_finite)
+        self._debug = debug_enabled()
+        # the last render_persistent's accounting under CRAYTPU_POOL_STATS
+        self.pool_stats = None
         self._sched = None
         self._sched_np = None
         self._sched_dev_t = None
@@ -202,7 +285,7 @@ class WavefrontRenderer:
         return out, col, s_sel
 
     def _step(self, o, d, weight, final, s, alive, rr_active,
-              prev_nee=None, params=None, isect=None):
+              prev_nee=None, params=None, isect=None, bounce=None):
         """One wavefront bounce (the JAX package's _make_step with
         rr_phase="dynamic"). rr_active: per-lane (or 0-d) Russian-roulette
         phase (path depth >= 4). prev_nee: the per-lane flag of next-event
@@ -210,7 +293,9 @@ class WavefrontRenderer:
         the next bounce as a 7th output. params: the material tables to
         differentiate (default: the scene's). isect: the closest-hit +
         record function (default: the renderer's; make_trace_fn passes the
-        vertex-differentiable one, or one that replays saved searches)."""
+        vertex-differentiable one, or one that replays saved searches).
+        bounce: the path depth of this bounce (an int, or a per-lane
+        tensor), named by debug mode's error."""
         cs = self.cscene
         params = cs.params if params is None else params
         isect = self.isect if isect is None else isect
@@ -280,6 +365,8 @@ class WavefrontRenderer:
         weight = torch.where(sv, (attenuation * weight) * coef, weight)
         o = torch.where(sv, p_w, o)
         d = torch.where(sv, out, d)
+        if self._debug:
+            self._check_finite(bounce, survive, weight, final, d)
         if prev_nee is None:
             return o, d, weight, final, s, survive
         # NEE requested but no sampleable light table: the plain step with
@@ -287,6 +374,29 @@ class WavefrontRenderer:
         nee_v = (is_nee_v & survive if nee_fn is not None
                  else torch.zeros_like(survive))
         return o, d, weight, final, s, survive, nee_v
+
+    @staticmethod
+    def _check_finite(bounce, survive, weight, final, d) -> None:
+        """Debug mode's checks of one bounce's outputs (the JAX package's
+        checkify checks and jax_debug_nans): raise if a surviving path's
+        throughput or scattered direction, or any lane's radiance, is not
+        finite. One host sync a bounce."""
+        sv = survive[..., None]
+        bad = torch.stack([(sv & ~torch.isfinite(weight)).any(-1),
+                           (~torch.isfinite(final)).any(-1),
+                           (sv & ~torch.isfinite(d)).any(-1)])
+        if not bool(bad.any()):
+            return
+        what = ("path weight (bsdf output, attenuation or Russian-roulette "
+                "divisor)", "accumulated radiance (emission or background)",
+                "scattered direction out of a bsdf")
+        for name, b in zip(what, bad):
+            if bool(b.any()):
+                i = int(torch.nonzero(b)[0, 0])
+                depth = int(bounce[i]) if torch.is_tensor(bounce) else bounce
+                raise FloatingPointError(
+                    f"non-finite {name} after bounce {depth}: "
+                    f"{int(b.sum())} lane(s), first lane {i} (CRAYTPU_DEBUG)")
 
     def _bounces(self, k, o, d, weight, delta, s, alive, pdepth):
         """k bounces; radiance sums into the per-lane delta. pdepth is the
@@ -299,12 +409,12 @@ class WavefrontRenderer:
                 alive = alive & (depth < self.max_depth)
                 o, d, weight, delta, s, alive, prev = self._step(
                     o, d, weight, delta, s, alive, depth >= 4,
-                    (pdepth >> 16) > 0)
+                    (pdepth >> 16) > 0, bounce=depth)
                 pdepth = (depth + 1) | (prev.to(torch.int32) << 16)
                 continue
             alive = alive & (pdepth < self.max_depth)
             o, d, weight, delta, s, alive = self._step(
-                o, d, weight, delta, s, alive, pdepth >= 4)
+                o, d, weight, delta, s, alive, pdepth >= 4, bounce=pdepth)
             pdepth = pdepth + 1
         return o, d, weight, delta, s, alive, pdepth
 
@@ -419,7 +529,8 @@ class WavefrontRenderer:
                 alive = torch.ones(B, dtype=torch.bool, device=o.device)
                 for k in range(depth):
                     o, d, weight, final, s, alive = self._step(
-                        o, d, weight, final, s, alive, on if k >= 4 else off)
+                        o, d, weight, final, s, alive, on if k >= 4 else off,
+                        bounce=k)
                     n = int(alive.sum())
                     max_live[k] = max(max_live[k], n)
                     if n == 0:
@@ -564,7 +675,12 @@ class WavefrontRenderer:
         n = accum.new_tensor(float(pass_idx + 1))
         return (accum * (n - 1.0) + sample.reshape(H, W, 4)) / n
 
-    def render(self, spp: int | None = None, progress=None) -> np.ndarray:
+    def render(self, spp: int | None = None, progress=None,
+               stop=None) -> np.ndarray:
+        """Per-pass frame -> (H, W, 4) running mean on the host.
+        progress(pass_done, spp, accum) after each pass; stop(), when
+        given, is asked after each pass and ends the frame early (the
+        mean of the passes done) when it returns True."""
         spp = spp if spp is not None else self.cscene.prefs.sample_count
         accum = torch.zeros((self.height, self.width, 4),
                             dtype=torch.float32, device=self.device)
@@ -572,6 +688,8 @@ class WavefrontRenderer:
             accum = self.render_pass(accum, p, spp)
             if progress is not None:
                 progress(p + 1, spp, accum)
+            if stop is not None and stop():
+                break
         return accum.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -701,15 +819,18 @@ class WavefrontRenderer:
                               stable=True)[:Bn]
         return self._permute_pool(order, replace(pool, delta=delta))
 
-    def _drain_all(self, pool: Pool) -> Pool:
+    def _drain_all(self, pool: Pool) -> tuple:
         """Run the pool to extinction: steps of 8 bounces until no lane
         is alive, checked once a step. A step changes nothing for a dead
         lane (its radiance, throughput, ray and sampler are all masked),
-        so the extra bounces of the last step do not change the image."""
+        so the extra bounces of the last step do not change the image.
+        Returns (pool, the number of steps)."""
+        n = 0
         while True:
             pool, _ = self._pool_step(8, pool)
+            n += 1
             if not bool(pool.alive.any()):
-                return pool
+                return pool, n
 
     def render_persistent(self, spp: int | None = None, progress=None,
                           resume=None, interrupt=None, on_frame=None,
@@ -737,6 +858,9 @@ class WavefrontRenderer:
         on_frame(final_sum, done): called after every refill with the
         framebuffer SUM on the device and the queue entries taken.
         fetch=False returns the frame on the device.
+        CRAYTPU_POOL_STATS=1 prints the loop's accounting to stderr at the
+        end and keeps it in self.pool_stats; CRAYTPU_POOL_SYNC=1 with it
+        adds the wall time of each phase (_PoolStats).
         """
         spp = spp if spp is not None else self.cscene.prefs.sample_count
         H, W = self.height, self.width
@@ -753,6 +877,8 @@ class WavefrontRenderer:
         k_env = os.environ.get("CRAYTPU_POOL_K")
         k = int(k_env) if k_env else 1
         force_k = bool(k_env)   # an explicit k also holds in the drain
+        stats = _PoolStats(bool(os.environ.get("CRAYTPU_POOL_STATS")),
+                           bool(os.environ.get("CRAYTPU_POOL_SYNC")), dev)
 
         total = npix * spp
         if resume is not None:
@@ -801,7 +927,9 @@ class WavefrontRenderer:
             Bc = pool.alive.shape[0]
             # drain phase: more bounces a step as the pool shrinks
             kc = k if (force_k or Bc > 32768) else (4 if Bc > 4096 else 8)
+            stats.start()
             pool, n_live = self._pool_step(kc, pool)
+            stats.add("step", ("step", Bc, kc), live=min(stale_n, Bc), k=kc)
             counts.append([_count_to_host(n_live), 0])
             # lag-1 count: read step i-1's count while the device runs
             # step i
@@ -824,6 +952,7 @@ class WavefrontRenderer:
                         max((queue.left() + Q - 1) // Q, 1))
                 while m & (m - 1):
                     m &= m - 1
+                stats.start()
                 if queue.pending:
                     # resume path: non-contiguous re-enqueued ids go
                     # through the host-side fresh-ray builder
@@ -839,6 +968,7 @@ class WavefrontRenderer:
                     queue.ranges[0][0] += took
                     if queue.ranges[0][0] >= hi:
                         queue.ranges.pop(0)
+                stats.add("refill", ("refill", m))
                 # counts issued before this refill undercount by took
                 for e in counts:
                     e[1] += took
@@ -857,12 +987,18 @@ class WavefrontRenderer:
                 while Bn // 4 >= need:
                     Bn //= 4
                 if Bn < Bc:
+                    stats.start()
                     pool = self._pack_shrink(Bn, final, pool)
+                    stats.add("shrink", ("shrink", Bn))
                 if pool.alive.shape[0] <= self.DRAIN_DEV_MAX \
                         and interrupt is None:
-                    pool = self._drain_all(pool)
+                    stats.start()
+                    pool, n = self._drain_all(pool)
+                    stats.add("step", ("drain_all", pool.alive.shape[0]), n)
                     break
         self._final_flush(final, pool)
+        if stats.on:
+            self.pool_stats = stats.report(B, total)
         # divide by a tensor: on CUDA, tensor / python float multiplies
         # by the reciprocal
         final = (final / final.new_tensor(float(spp))).reshape(H, W, 4)
@@ -949,7 +1085,7 @@ class _TraceRun:
     def bounce(self, k: int, o, d, w, fin, s, al, pv, isect):
         """Bounce k of the trace: 6 outputs, or 7 with the NEE flag."""
         return self.ren._step(o, d, w, fin, s, al, self.rr[k >= 4], pv,
-                              self.params, isect)
+                              self.params, isect, bounce=k)
 
     def checkpointed(self, fn, *args):
         """fn(isect, *args) under torch.utils.checkpoint; with
@@ -1019,6 +1155,11 @@ class _TraceRun:
                 # truncating live lanes would drop radiance and corrupt
                 # the gradients: poison the result instead (no host sync)
                 overflow = alive.sum() > w
+                if ren._debug and bool(overflow):
+                    raise FloatingPointError(
+                        f"compaction schedule overflow at bounce {ds}: "
+                        f"{int(alive.sum())} live lanes exceed width {w}, "
+                        "the trace would be NaN (CRAYTPU_DEBUG)")
                 final = torch.where(overflow, float("nan"), final)
                 if boundary_sort:
                     # dead lanes get the max key: a stable argsort is
@@ -1046,8 +1187,9 @@ class _TraceRun:
 
 def render(cscene: CompiledScene, kind: str = smp.RANDOM,
            spp: int | None = None, bounces: int | None = None,
-           progress=None) -> np.ndarray:
+           progress=None, stop=None) -> np.ndarray:
     """Full render. Returns the float accumulation buffer (H, W, 4), y-up
     like the reference's renderBuffer (row y=0 is the image BOTTOM; the PNG
-    writer flips)."""
-    return WavefrontRenderer(cscene, kind, bounces).render(spp, progress)
+    writer flips). stop: as WavefrontRenderer.render."""
+    return WavefrontRenderer(cscene, kind, bounces).render(spp, progress,
+                                                           stop)

@@ -31,6 +31,7 @@ from craytpu_torch.ops import intersect as isx
 from craytpu_torch.ops import traverse as trv
 from craytpu_torch.ops import vecmath as vm
 from craytpu_torch.scene.device import INST_SPHERE
+from craytpu_torch.utils.torchsetup import debug_enabled
 
 FLT_MAX = isx.FLT_MAX
 N_OUT = 16
@@ -237,6 +238,19 @@ class _RecordGrad(torch.autograd.Function):
         return (g_tp,) + (None,) * 9
 
 
+def check_ids(prim, inst, n_prim: int, n_inst: int, where: str) -> None:
+    """Debug mode's index check (the JAX package's checkify index
+    checks): raise unless every prim is in [-1, n_prim) and every inst
+    in [-1, n_inst) (-1: no hit). Waits for the device."""
+    bad = (prim < -1) | (prim >= n_prim) | (inst < -1) | (inst >= n_inst)
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0, 0])
+        raise IndexError(
+            f"{where}: {int(bad.sum())} lane(s) with an out-of-range id, "
+            f"first lane {i}: prim {int(prim[i])} of {n_prim}, inst "
+            f"{int(inst[i])} of {n_inst} (CRAYTPU_DEBUG)")
+
+
 class Isect:
     """Closest hit (K2) then hit-record resolve (K1):
     isect(geom, o_w, d_w, alive) -> (is_hit, p_w, n_w, uv, mat_id, t).
@@ -254,11 +268,15 @@ class Isect:
 
     `search` and `resolve` split the call, so that a caller can keep
     search's detached results (K2's winners and K1's records) and resolve
-    them again without launching either kernel."""
+    them again without launching either kernel.
+
+    Under CRAYTPU_DEBUG (read when the Isect is built) both check that
+    the winner ids they take are in range (check_ids)."""
 
     def __init__(self, cscene, tri_packed=None):
         self.cscene = cscene
         self.tri_packed = tri_packed
+        self.debug = debug_enabled()
         self.tri_wide = cscene.tri_wide
         if tri_packed is not None:
             self.tri_wide = torch.cat([tri_packed.detach(),
@@ -272,6 +290,9 @@ class Isect:
         layout = cs.layout if o_w.device.type == "cuda" else None
         hit = trv.closest_hit(geom, o_w, d_w, limit, cs.tlas_end,
                               cs.stack_depth, layout)
+        if self.debug:
+            check_ids(hit.prim, hit.inst, self.tri_wide.shape[0],
+                      cs.inst_wide.shape[0], "closest hit")
         rec = hitrec_record(self.tri_wide, cs.inst_wide, o_w, d_w, hit.t,
                             hit.prim, hit.inst, cs.sphere_uv)
         return hit.t, hit.prim, hit.inst, rec
@@ -279,6 +300,9 @@ class Isect:
     def resolve(self, found: tuple, o_w, d_w) -> tuple:
         t_k, prim, inst, rec = found
         cs = self.cscene
+        if self.debug:
+            check_ids(prim, inst, self.tri_wide.shape[0],
+                      cs.inst_wide.shape[0], "hit record")
         tp = self.tri_packed
         if tp is not None and torch.is_grad_enabled() and tp.requires_grad:
             rec = _RecordGrad.apply(tp, rec, self.tri_wide, cs.inst_wide,

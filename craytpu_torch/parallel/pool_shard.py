@@ -2,7 +2,7 @@
 parallel/pool_shard.py::make_renderer).
 
 The sharded persistent-pool renderer (one pool per card, queue ranges
-split across cards) is not ported yet (ROADMAP.md item 15): the factory
+split across cards) is not ported yet (ROADMAP.md item 15b): the factory
 returns the single-card WavefrontRenderer on the scene's device.
 """
 
@@ -23,7 +23,7 @@ def make_renderer(cscene, kind: str = smp.RANDOM,
     device)."""
     if cscene.device.type == "cuda" and torch.cuda.device_count() > 1:
         logging.info("%d CUDA devices visible; rendering on %s only (the "
-                     "sharded renderer is ROADMAP.md item 15)",
+                     "sharded renderer is ROADMAP.md item 15b)",
                      torch.cuda.device_count(), cscene.device)
     return WavefrontRenderer(cscene, kind=kind, bounces=bounces,
                              tile_rays=tile_rays, nee=nee)

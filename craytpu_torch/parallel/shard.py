@@ -8,7 +8,7 @@ n_sample passes (base_pass + i, of n_sample) traces the whole ray batch,
 one after another on the scene's device, and their radiance is averaged,
 as the mesh's pmean over the sample axis does. The ray axis is the whole
 batch. Sharding over several cards (torch.distributed) and make_mesh are
-not ported yet (ROADMAP.md item 15); with more than one card visible the
+not ported yet (ROADMAP.md item 15b); with more than one card visible the
 functions say so and run on the scene's device.
 """
 
@@ -35,7 +35,7 @@ def pad_to(n: int, multiple: int) -> int:
 def _one_card(r: WavefrontRenderer) -> None:
     if r.device.type == "cuda" and torch.cuda.device_count() > 1:
         logging.info("%d CUDA devices visible; training on %s only (the "
-                     "sharded train step is ROADMAP.md item 15)",
+                     "sharded train step is ROADMAP.md item 15b)",
                      torch.cuda.device_count(), r.device)
 
 

@@ -11,6 +11,8 @@ never routes geometry through a matmul (ops/vecmath.py).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -32,3 +34,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "craytpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain versions")
     return dev
+
+
+def debug_enabled() -> bool:
+    """CRAYTPU_DEBUG=1: the analogue of the reference's opt-in
+    ASan/UBSan builds (CMakeLists.txt:44-55). Read per call so tests can
+    toggle it after import. A renderer built with it on checks every
+    bounce step's outputs for non-finite values, and the closest-hit and
+    hit-record wrappers (ops/hitrec.py::Isect) check their ids, raising
+    a located error instead of painting a black pixel: the port of the
+    JAX package's jax_debug_nans and checkify checks (PyTorch has no
+    global switch to turn on, so there is no maybe_enable_debug). Off,
+    nothing is checked and nothing waits for the device."""
+    return os.environ.get("CRAYTPU_DEBUG", "") not in ("", "0")

@@ -1,7 +1,7 @@
 """The port's CLI (python -m craytpu_torch) on the CPU: the PNG it writes
 against craytpu's CLI output for the same arguments, interrupt and
---resume of both checkpoint kinds, the argument parser, and the flags of
-modules not ported yet.
+--resume of both checkpoint kinds, and the argument parser. The cluster,
+preview, trace and test-dispatch flags: tests/test_torch_cli_tools.py.
 
 Tolerance: images of the two packages (and of a resumed render against
 an uninterrupted one) are held to the golden thresholds of
@@ -114,18 +114,6 @@ def test_cli_preview_progressive(tmp_path, monkeypatch):
     assert cli.main(ARGS + ["--preview", "1"], device="cpu") == 0
     assert os.path.exists(os.path.join("output", "entry_preview.png"))
     assert read_png_rgb(PNG).shape == (24, 32, 3)
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--worker"], 15), (["--nodes", "localhost:2222"], 15),
-    (["--shutdown"], 15), (["--preview-http"], 15),
-    (["--trace"], 16), (["--test"], 15), (["--tcount"], 15),
-    (["--ptcount"], 15), (["--test-perf"], 15)])
-def test_later_item_flags_exit(flags, item, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main([SCENE] + flags, device="cpu")
-    assert e.value.code != 0
-    assert f"ROADMAP.md item {item}" in capsys.readouterr().err
 
 
 def test_cli_nee_renders(port_png, tmp_path, monkeypatch):
