@@ -100,9 +100,10 @@ Phases (any failure exits non-zero and prints no result line):
                --worker <free port>` as a subprocess (killed in a finally);
                both stress goldens at 80x50, 4 spp, through
                render_clustered with the master and the worker; then
-               stress_highpoly at 1920x1080, its 64x64 tiles and 12
-               bounces, one session: one tile pass is timed first and the
-               largest spp of {4, 2, 1} whose frames fit about 100 s is
+               stress_highpoly at 1920x1080, its 64x64 tiles and 6
+               bounces (cut from its 12; CLUSTER_BOUNCES), one session:
+               one tile pass is timed first and the
+               largest spp of {4, 2, 1} whose frames fit about 60 s is
                run, the master alone (clients=[]) and master + worker in
                turns; each frame equal to render_pass's (rtol=2e-6,
                atol=2e-7); paths/s, tiles done by each side, the worker's
@@ -125,7 +126,28 @@ Phases (any failure exits non-zero and prints no result line):
                equal phase 5's, and with CRAYTPU_POOL_SYNC=1 each phase's
                wall time; `--test-perf` prints its five lines and
                `--tcount` a positive count.
-Then one line {"kernels": [...]} and, last, the ok line with the device.
+  11. shard  — the renderer and the train step over a process group
+               (craytpu_torch/parallel/dist.py, pool_shard.py, shard.py)
+               on this one card. A 1-rank NCCL group in this process:
+               ShardedPoolRenderer's 1080p persistent frame against the
+               single-card frame (rtol=2e-5, atol=2e-6), and a 64x64 tile
+               at 4 spp through render_ids against render_tile's eager
+               path (same tolerance), each timed 3 times. A 2-rank gloo
+               group sharing the card (dist.spawn_local): the 1080p frame
+               with each rank's K2/K1 launches (counts set to 0 just
+               before, read just after; every rank must launch both),
+               equal on every rank and to the 1-rank frame; paths/s of 2
+               ranks and of 1 rank (rank 0 alone) in turns; an interrupt
+               at the 3rd poll on entry_scene (96x64, 3 spp, k=1) resumed
+               on 1 rank against the uninterrupted frame; the material
+               train step on a (1, 2) mesh against the one-card step on
+               the first 2^20 pixels (loss rtol=1e-5, tables atol=1e-6
+               where the gradient counts), timed in turns. Then both
+               stress goldens at 80x50, 4 spp, through the 2-rank CLI
+               (CRAYTPU_COORDINATOR and friends; exactly one PNG), and
+               craytpu_torch.entry.dryrun_multichip(2).
+Then one line {"kernels": [...]} (launches_sharded: each rank's launches
+in phase 11's 2-rank frame) and, last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
 
@@ -1465,9 +1487,12 @@ def tail(path: str, n: int = 3000) -> str:
         return f.read()[-n:].decode(errors="replace")
 
 
-def cluster_session(name: str, overrides: dict, node: str):
+def cluster_session(name: str, overrides: dict, node: str,
+                    bounces: int | None = None):
     """Load a scene as the CLI's master does (its assets recorded) and
-    ship it to the worker at `node`: (scene, scene renderer, clients)."""
+    ship it to the worker at `node`: (scene, scene renderer, clients).
+    bounces: a path depth written into the scene's JSON in place of its
+    own (the master and the worker both read it)."""
     from craytpu_torch.parallel import cluster
     from craytpu_torch.parallel.pool_shard import make_renderer
     from craytpu_torch.scene.compile import compile_scene
@@ -1476,6 +1501,10 @@ def cluster_session(name: str, overrides: dict, node: str):
     path = os.path.join(REPO, "assets", f"{name}.json")
     assets = fileio.start_recording()
     text = fileio.load_file(path, text=True)
+    if bounces is not None:
+        data = json.loads(text)
+        data["renderer"]["bounces"] = bounces
+        text = json.dumps(data)
     asset_path = os.path.dirname(path) + "/"
     scene = load_scene_from_buf(text, asset_path, overrides)
     fileio.stop_recording()
@@ -1521,6 +1550,14 @@ def clustered_frame(torch, scene, r, clients, spp):
     return fb, secs, count.n, stats.get("last")
 
 
+# phase 9's 1080p clustered frames trace this many bounces (the scene's
+# own 12 cut to 6), and their turns fit about this many seconds: at 12
+# bounces a master-alone frame alone took about 80 s on the H100, and
+# the script keeps to half its 1200 s limit
+CLUSTER_BOUNCES = 6
+CLUSTER_FRAMES_S = 60.0
+
+
 def phase_cluster(torch, kernels: dict) -> None:
     """Phase 9: the TCP cluster on one card (master plus a worker
     process, against the master alone)."""
@@ -1555,11 +1592,13 @@ def phase_cluster(torch, kernels: dict) -> None:
             if not ok:
                 fail(f"cluster golden {name}")
 
-        # ---- the 1080p frame: one session, a startRender a frame
+        # ---- the 1080p frame: one session, a startRender a frame, at
+        # CLUSTER_BOUNCES (the eager tile path's host time grows with
+        # the bounces; the phase keeps its frames near 60 s)
         t1 = time.perf_counter()
         scene, r, clients = cluster_session(
             "stress_highpoly", {"width": W, "height": H, "samples": SPP},
-            node)
+            node, bounces=CLUSTER_BOUNCES)
         p = scene.prefs
         tw, th = min(p.tile_width, W), min(p.tile_height, H)
         tiles = quantize_image(W, H, tw, th, p.tile_order)
@@ -1576,11 +1615,13 @@ def phase_cluster(torch, kernels: dict) -> None:
         torch.cuda.synchronize()
         tile_s = (time.perf_counter() - t1) / 3
         # the largest spp of {4, 2, 1} whose frames (about 3.2 master-alone
-        # frames' time for the turns below) stay under 100 s
+        # frames' time for the turns below) stay under CLUSTER_FRAMES_S
         est = {s: tile_s * len(tiles) * s for s in (4, 2, 1)}
-        spp = next((s for s in (4, 2, 1) if 3.2 * est[s] <= 100.0), 1)
+        spp = next((s for s in (4, 2, 1)
+                    if 3.2 * est[s] <= CLUSTER_FRAMES_S), 1)
         turns = (["alone", "worker", "worker", "alone"]
-                 if 3.2 * est[spp] <= 100.0 else ["alone", "worker"])
+                 if 3.2 * est[spp] <= CLUSTER_FRAMES_S
+                 else ["alone", "worker"])
         print(f"cluster: one {tw}x{th} tile pass {tile_s * 1e3:.2f} ms -> a "
               f"master-alone frame about {est[spp]:.1f} s at {spp} spp; "
               f"running {spp} spp (of the scene's {SPP}), turns {turns}",
@@ -1894,6 +1935,320 @@ def phase_tools(torch, pool_calls: dict) -> None:
               f"{' | '.join(lines)}", flush=True)
 
 
+def interrupt_at(n: int):
+    """An interrupt callable that fires at its n-th poll."""
+    polls = []
+
+    def interrupt():
+        polls.append(1)
+        return len(polls) >= n
+    return interrupt
+
+
+def digest(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def step_close(got, want, mu) -> float:
+    """Fail-free check of an updated theta against another: the largest
+    |d| of any table over the entries whose gradient (mu / 0.1 after one
+    Adam step) exceeds 1e-3 of its table's largest (elsewhere the first
+    step moves an entry by about +-lr with the sign of noise)."""
+    from dataclasses import fields
+    worst = 0.0
+    for f in fields(want):
+        g = getattr(mu, f.name).abs()
+        if float(g.max()) == 0.0:
+            continue
+        sel = g > 1e-3 * g.max()
+        d = (getattr(got, f.name) - getattr(want, f.name)).abs()[sel]
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
+
+
+def shard_rank() -> dict:
+    """One rank of phase 11's group of 2 (gloo, both ranks on this card):
+    the 1080p persistent frame of ShardedPoolRenderer (launches counted
+    on each rank), paths/s of 2 ranks and of 1 rank (rank 0 alone, rank 1
+    waiting) in turns, an interrupt at the 3rd poll on entry_scene, and
+    the material train step on a (1, 2) mesh in turns with the one-card
+    step. Returns rank 0's numbers and each rank's launches and digest."""
+    import torch
+    import torch.distributed as tdist
+
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.parallel import dist, shard
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    from craytpu_torch.scene.compile import compile_scene
+    rank = dist.rank()
+    out = {"rank": rank, "backend": tdist.get_backend()}
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    r = make_renderer(cs)
+    out["renderer"] = (type(r).__name__, r.D, r.n_cards)
+    single = WavefrontRenderer(cs)
+
+    def frame(kind) -> float:
+        tdist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "2 ranks":
+            r.render_persistent(SPP, fetch=False)
+        elif rank == 0:
+            single.render_persistent(SPP, fetch=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tdist.barrier()
+        return dt
+
+    frame("2 ranks")                                         # warm-up
+    frame("1 rank")
+    trv.closest_hit.launches = 0
+    hr.hitrec_record.launches = 0
+    fb = r.render_persistent(SPP)
+    out["launches"] = (trv.closest_hit.launches, hr.hitrec_record.launches)
+    out["digest"] = digest(fb)
+    if rank == 0:
+        out["frame"] = fb
+    rates = {"2 ranks": [], "1 rank": []}
+    for _ in range(2):
+        for kind in ("2 ranks", "1 rank", "1 rank", "2 ranks"):
+            rates[kind].append(W * H * SPP / frame(kind))
+    out["rates"] = rates
+
+    # ---- a 2-rank interrupt (k=1, paths in flight): the checkpoint
+    os.environ["CRAYTPU_POOL_K"] = "1"
+    try:
+        rs = make_renderer(compile_scene(load("entry_scene", {})),
+                           tile_rays=8192)
+        ck = rs.render_persistent(3, interrupt=interrupt_at(3))
+    finally:
+        del os.environ["CRAYTPU_POOL_K"]
+    out["ckpt"] = ck[1:]
+
+    # ---- the material step on a (1, 2) mesh and on one card, in turns;
+    # the first 2^20 pixels of the 1080p tile schedule, target 0.8 x a
+    # render of them (made on rank 0 and broadcast)
+    mesh = shard.make_mesh(2, n_sample=1)
+    xs_all, ys_all, _, _ = single._pixel_schedule
+    B = min(1 << 20, xs_all.shape[0])
+    xs, ys = xs_all[:B], ys_all[:B]
+    with torch.no_grad():
+        target = shard.make_sharded_render_fn(single)(
+            cs.params, xs, ys, 7)[..., :3] * 0.8
+    tdist.broadcast(target, 0)
+    steps = {"(1, 2) mesh": shard.make_train_step(single, mesh,
+                                                  learning_rate=5e-3),
+             "one card": shard.make_train_step(single, 1,
+                                               learning_rate=5e-3)}
+    results = {}
+
+    def train(kind) -> float:
+        step, init = steps[kind]
+        tdist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "(1, 2) mesh" or rank == 0:
+            theta, state, loss = step(cs.params, init(cs.params), xs, ys,
+                                      target, 0)
+            results[kind] = (theta, state, float(loss))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tdist.barrier()
+        return dt
+
+    train("(1, 2) mesh")                                     # warm-ups
+    train("one card")
+    times = {"(1, 2) mesh": [], "one card": []}
+    for kind in ("(1, 2) mesh", "one card", "one card", "(1, 2) mesh"):
+        times[kind].append(train(kind))
+    out["train_s"] = times
+    th_m, st_m, loss_m = results["(1, 2) mesh"]
+    out["train_digest"] = digest(th_m.colors.cpu().numpy())
+    if rank == 0:
+        th_1, st_1, loss_1 = results["one card"]
+        out["train"] = {"loss": (loss_m, loss_1),
+                        "theta_d": step_close(th_m, th_1, st_1.mu)}
+    return out
+
+
+def phase_shard(torch, kernels: dict) -> None:
+    """Phase 11: the renderer and the train step over a process group
+    (parallel/dist.py, pool_shard.py, shard.py) on this one card: a
+    1-rank NCCL group in this process, then a 2-rank gloo group sharing
+    the card, the 2-rank CLI, and dryrun_multichip(2)."""
+    import torch.distributed as tdist
+
+    from craytpu_torch.entry import dryrun_multichip
+    from craytpu_torch.io.png import read_png_rgb
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.parallel import cluster, dist
+    from craytpu_torch.parallel.pool_shard import ShardedPoolRenderer
+    from craytpu_torch.runtime.tile import quantize_image
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.utils import golden
+
+    # ---- a 1-rank NCCL group: the frame and a tile through render_ids
+    t0 = time.perf_counter()
+    dist.init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        backend = tdist.get_backend()
+        cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                    "samples": SPP}))
+        single = WavefrontRenderer(cs)
+        one = ShardedPoolRenderer(cs)
+        one.render_persistent(SPP, fetch=False)              # warm-up
+        want = single.render_persistent(SPP)
+        frame1 = one.render_persistent(SPP)
+        err = float(np.max(np.abs(frame1 - want)))
+        print(f"shard: 1-rank {backend} group: ShardedPoolRenderer(D="
+              f"{one.D}) 1080p frame vs the single-card frame max |d| "
+              f"{err:.3e}", flush=True)
+        if not np.allclose(frame1, want, rtol=2e-5, atol=2e-6):
+            fail("1-rank sharded frame differs from the single-card frame")
+        p = cs.prefs
+        tw, th = min(p.tile_width, W), min(p.tile_height, H)
+        tiles = quantize_image(W, H, tw, th, p.tile_order)
+        t = tiles[len(tiles) // 2]
+        tile = {"begin_x": t.begin_x, "begin_y": t.begin_y,
+                "end_x": t.end_x, "end_y": t.end_y}
+        tile_ms = {}
+        got = {}
+        for name, ren in (("render_ids", one), ("eager", single)):
+            got[name] = cluster.render_tile(ren, tile, SPP, tw, th)  # warm
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                cluster.render_tile(ren, tile, SPP, tw, th)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            tile_ms[name] = ts
+        err = float(np.max(np.abs(got["render_ids"] - got["eager"])))
+        print(f"shard: a {tw}x{th} tile at {SPP} spp: render_ids "
+              f"{' '.join(f'{x:.2f}' for x in tile_ms['render_ids'])} ms, "
+              f"eager render_tile "
+              f"{' '.join(f'{x:.2f}' for x in tile_ms['eager'])} ms; "
+              f"max |d| {err:.3e}", flush=True)
+        if not np.allclose(got["render_ids"], got["eager"], rtol=2e-5,
+                           atol=2e-6):
+            fail("render_ids tile differs from render_tile's eager path")
+        del one, single, cs
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"shard: 1-rank part {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- a 2-rank gloo group sharing this card
+    t0 = time.perf_counter()
+    outs = dist.spawn_local(2, shard_rank, timeout_s=400,
+                            collective_timeout_s=300)
+    r0 = outs[0]
+    print(f"shard: 2-rank group ({r0['backend']}, renderer "
+          f"{r0['renderer']}) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if r0["renderer"][:2] != ("ShardedPoolRenderer", 2):
+        fail(f"2-rank make_renderer gave {r0['renderer']}")
+    if len({o["digest"] for o in outs}) != 1:
+        fail("the ranks hold different frames")
+    n_k2 = [o["launches"][0] for o in outs]
+    n_k1 = [o["launches"][1] for o in outs]
+    if min(n_k2) == 0 or min(n_k1) == 0:
+        fail(f"2-rank frame launches: closest_hit {n_k2}, hitrec {n_k1}")
+    kernels["closest_hit"]["launches_sharded"] = n_k2
+    kernels["hitrec"]["launches_sharded"] = n_k1
+    err = float(np.max(np.abs(r0["frame"] - frame1)))
+    print(f"shard: 2-rank 1080p {SPP}spp frame: launches per rank "
+          f"closest_hit {n_k2}, hitrec {n_k1}; vs the 1-rank frame max "
+          f"|d| {err:.3e}; every rank's frame equal", flush=True)
+    if not np.allclose(r0["frame"], frame1, rtol=2e-5, atol=2e-6):
+        fail("2-rank frame differs from the 1-rank frame")
+    med = {k: float(np.median(v)) for k, v in r0["rates"].items()}
+    print(f"shard: paths/s in turns (2 ranks, 1 rank, 1 rank, 2 ranks, "
+          f"x2): {fmt_rates(r0['rates'])}; ratio of medians "
+          f"{med['2 ranks'] / med['1 rank']:.3f}", flush=True)
+
+    # the 2-rank checkpoint resumed on 1 rank
+    fs, pend, ranges = r0["ckpt"]
+    os.environ["CRAYTPU_POOL_K"] = "1"
+    try:
+        r1 = WavefrontRenderer(compile_scene(load("entry_scene", {})),
+                               tile_rays=8192)
+        ref = r1.render_persistent(3)
+        resumed = r1.render_persistent(3, resume={
+            "final_sum": fs, "pending": pend, "ranges": ranges})
+    finally:
+        del os.environ["CRAYTPU_POOL_K"]
+    err = float(np.max(np.abs(resumed - ref)))
+    print(f"shard: 2-rank interrupt at poll 3 ({len(pend)} paths in "
+          f"flight, {len(ranges)} ranges) resumed on 1 rank: max |d| "
+          f"{err:.3e}", flush=True)
+    if len(pend) == 0 or not np.allclose(resumed, ref, rtol=2e-5,
+                                         atol=2e-6):
+        fail("the 2-rank checkpoint did not resume on 1 rank")
+
+    tr = r0["train"]
+    ts = r0["train_s"]
+    print(f"shard: material train step, 2^20 pixels: (1, 2) mesh "
+          f"{' '.join(f'{x:.3f}' for x in ts['(1, 2) mesh'])} s, one card "
+          f"{' '.join(f'{x:.3f}' for x in ts['one card'])} s; loss "
+          f"{tr['loss'][0]:.7g} vs {tr['loss'][1]:.7g}; max |d theta| "
+          f"{tr['theta_d']:.3e} where the gradient counts", flush=True)
+    if len({o["train_digest"] for o in outs}) != 1:
+        fail("the ranks took different train steps")
+    if not (np.isclose(tr["loss"][0], tr["loss"][1], rtol=1e-5, atol=0)
+            and tr["theta_d"] <= 1e-6):
+        fail("the (1, 2) mesh step differs from the one-card step")
+
+    # ---- the goldens through the 2-rank CLI (both scenes at once)
+    t0 = time.perf_counter()
+    procs = []
+    for name in ("stress_highpoly", "stress_instances"):
+        d = os.path.join(REPO, "build", "chip_smoke", f"shard_cli_{name}")
+        os.makedirs(d, exist_ok=True)
+        port = free_port()
+        for i in range(2):
+            env = dict(cli_env(), CRAYTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       CRAYTPU_NUM_PROCESSES="2", CRAYTPU_PROCESS_ID=str(i))
+            procs.append((name, d, subprocess.Popen(
+                [sys.executable, "-m", "craytpu_torch",
+                 os.path.join(REPO, "assets", f"{name}.json"), "-s", "4",
+                 "-d", "80x50"], cwd=d, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    try:
+        logs = [p.communicate(timeout=300)[0] for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+    for (name, d, p), log in zip(procs, logs):
+        if p.returncode != 0:
+            fail(f"2-rank CLI {name} exited {p.returncode}: {log[-2000:]}")
+    for name, d, _ in procs[::2]:
+        pngs = sorted(os.listdir(os.path.join(d, "output")))
+        if pngs != [f"{name}_0000.png"]:
+            fail(f"2-rank CLI {name} wrote {pngs}")
+        ok, within, mean_abs = golden.compare_u8(
+            read_png_rgb(os.path.join(d, "output", pngs[0])),
+            read_png_rgb(os.path.join(REPO, "goldens", f"{name}_80_4.png")))
+        print(f"shard: golden {name} 80x50 4spp through the 2-rank CLI: "
+              f"within1lsb={within:.5f} mean_abs={mean_abs:.4f} ok={ok}",
+              flush=True)
+        if not ok:
+            fail(f"2-rank CLI golden {name}")
+    print(f"shard: 2-rank CLI goldens {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- the entry point: dryrun_multichip(2) on this card
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(2)
+    print(f"shard: dryrun_multichip(2) {summary} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1928,6 +2283,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cluster(torch, kernels)
     phase_tools(torch, pool_calls)
+    phase_shard(torch, kernels)
+    # the card again, so that the end of a long log names it
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": [kernels["closest_hit"],
                                   kernels["hitrec"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

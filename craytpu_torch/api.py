@@ -7,6 +7,11 @@ pairs for thread count / samples / bounces / tile dims / image dims /
 output path, start renderer, abort, write image. Worker mode is the CLI's
 `--worker` (parallel/cluster.py::start_worker). The renderer runs on
 `device` (CUDA unless the caller passes "cpu").
+
+In a group of ranks (initialize() joins it when CRAYTPU_COORDINATOR or
+torchrun's variables configure one; parallel/dist.py) every rank loads
+and compiles the scene and renders its share of each pass; rank 0 alone
+writes the image and decides an abort.
 """
 
 from __future__ import annotations
@@ -98,13 +103,21 @@ class Renderer:
         from craytpu_torch.scene.compile import compile_scene
         from craytpu_torch.models import wavefront_pt
         from craytpu_torch.ops import sampler as smp
+        from craytpu_torch.parallel import dist
         t0 = time.perf_counter()
         self._aborted = False
         self.compiled = compile_scene(self.scene, self.device)
         kind = smp.HALTON if self.interactive else smp.RANDOM
-        self.framebuffer = wavefront_pt.render(
-            self.compiled, kind=kind, progress=progress,
-            stop=lambda: self._aborted)
+        if dist.multi_rank():
+            # each pass split over the group; rank 0's abort for all
+            from craytpu_torch.parallel.pool_shard import make_renderer
+            self.framebuffer = make_renderer(self.compiled, kind=kind).render(
+                progress=progress,
+                stop=lambda: bool(dist.broadcast_object(self._aborted)))
+        else:
+            self.framebuffer = wavefront_pt.render(
+                self.compiled, kind=kind, progress=progress,
+                stop=lambda: self._aborted)
         self.render_time_ms = (time.perf_counter() - t0) * 1e3
         logging.info("Finished render in %s",
                      logging.smart_time(self.render_time_ms))
@@ -120,6 +133,9 @@ class Renderer:
 
     # ---- output (c-ray.c:85-111) ----
     def write_image(self) -> str:
+        """Write the framebuffer (rank 0 of a group only); returns the
+        path."""
+        from craytpu_torch.parallel import dist
         p = self.scene.prefs
         os.makedirs(p.img_file_path or ".", exist_ok=True)
         # filename pattern %s%s_%04d (encoders/encoder.c:22-26)
@@ -131,20 +147,24 @@ class Renderer:
             "Samples per pixel": str(p.sample_count),
             "Bounces": str(p.bounces),
         }
+        path = base + (".bmp" if p.img_type == "bmp" else ".png")
+        if dist.rank() != 0:
+            return path
         if p.img_type == "bmp":
             from craytpu_torch.io.png import write_bmp
-            path = base + ".bmp"
             write_bmp(path, self.framebuffer)
         else:
             from craytpu_torch.io.png import write_png
-            path = base + ".png"
             write_png(path, self.framebuffer, meta)
         logging.info("Wrote %s", path)
         return path
 
 
 def initialize() -> Renderer:
-    """crInitialize + crInitRenderer."""
+    """crInitialize + crInitRenderer; joins the process group first when
+    one is configured (parallel/dist.py::init_distributed)."""
+    from craytpu_torch.parallel import dist
+    dist.init_distributed()
     return Renderer()
 
 

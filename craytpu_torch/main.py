@@ -143,7 +143,40 @@ def _device_name(device) -> str:
 def main(argv: list[str] | None = None, device=None) -> int:
     """Run the CLI. device: where to render (None = the CUDA card, or
     the CPU when CRAYTPU_PLATFORM=cpu). Returns the exit code: 0, or 130
-    after an interrupt that wrote a checkpoint."""
+    after an interrupt that wrote a checkpoint.
+
+    Several ranks (CRAYTPU_COORDINATOR / CRAYTPU_NUM_PROCESSES /
+    CRAYTPU_PROCESS_ID, or torchrun's variables; parallel/dist.py) join
+    one process group first, as the JAX package's main joins
+    jax.distributed: every rank loads and compiles the scene and renders
+    its share; rank 0 alone writes the image, checkpoints, status and
+    progress lines, and decides an interrupt."""
+    from craytpu_torch.parallel import dist
+    if device is None and os.environ.get("CRAYTPU_PLATFORM") == "cpu":
+        device = "cpu"
+    joined = not dist.initialized() and dist.init_distributed(device=device)
+    try:
+        return _main(argv, device)
+    finally:
+        if joined:
+            import torch.distributed
+            torch.distributed.destroy_process_group()
+
+
+def _rank0() -> bool:
+    """True on the only process, or on rank 0 of a group: images,
+    checkpoints, status and progress are written once."""
+    from craytpu_torch.parallel import dist
+    return dist.rank() == 0
+
+
+def _group_key(key: str | None) -> str | None:
+    """Rank 0's key press (S, X, P, or None) on every rank of a group."""
+    from craytpu_torch.parallel import dist
+    return dist.broadcast_object(key) if dist.multi_rank() else key
+
+
+def _main(argv: list[str] | None, device) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     opts = cliargs.parse_args(argv)
     logging.set_verbose(bool(opts.get("v")))
@@ -170,9 +203,6 @@ def main(argv: list[str] | None = None, device=None) -> int:
             print(_collected(out.stdout))
             return 0
         return subprocess.call(_pytest_command(suite, collect=False))
-
-    if device is None and os.environ.get("CRAYTPU_PLATFORM") == "cpu":
-        device = "cpu"
 
     if opts.get("shutdown") and opts.get("nodes_list"):
         from craytpu_torch.parallel import cluster
@@ -260,6 +290,11 @@ def main(argv: list[str] | None = None, device=None) -> int:
     from craytpu_torch.api import Renderer
     if clustering:
         from craytpu_torch.parallel import cluster
+        if not _rank0():
+            # rank 0 owns the sockets; this rank renders the local tiles
+            # it is handed
+            cluster.follow_jobs(r)
+            return 0
         t0 = time.perf_counter()
         clients = cluster.sync_with_clients(
             opts["nodes_list"], scene_text, asset_path, assets, overrides)
@@ -292,7 +327,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     # --preview-http: live localhost view of the accumulating frame +
     # progress counters (ui.c:88-160/:236-320 analogue for headless hosts)
     preview_srv = None
-    if opts.get("preview_http") is not None:
+    if opts.get("preview_http") is not None and _rank0():
         from craytpu_torch.runtime.preview import PreviewServer
         preview_srv = PreviewServer(r.width, r.height,
                                     port=opts["preview_http"] or 8650)
@@ -322,7 +357,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     # perfetto)
     trace_dir = opts.get("trace_dir")
     prof = None
-    if trace_dir:
+    if trace_dir and _rank0():
         os.makedirs(trace_dir, exist_ok=True)
         prof = _start_trace(r.device)
         logging.info("Capturing a profiler trace to %s", trace_dir)
@@ -353,11 +388,13 @@ def main(argv: list[str] | None = None, device=None) -> int:
                     if now - last_regions[0] >= 1.0:
                         last_regions[0] = now
                         preview_srv.update_regions(*region_tracker.snapshot(
-                            max(done, 0), spp, r.tile_rays))
+                            max(done, 0), spp, r.tile_rays * r.n_ranks))
 
             on_frame = None
-            if preview_srv is not None:
-                # throttled host fetches of the running frame (every 2 s)
+            if opts.get("preview_http") is not None:
+                # throttled host fetches of the running frame (every 2 s;
+                # in a group every rank joins each fetch, and rank 0 alone
+                # has the server)
                 from craytpu_torch.runtime.preview import frame_hook
                 on_frame = frame_hook(preview_srv, r, spp)
 
@@ -381,7 +418,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
 
             try:
                 with keys:
-                    out = r.render_persistent(spp=spp, progress=ray_progress,
+                    out = r.render_persistent(spp=spp, progress=(
+                                              ray_progress if _rank0()
+                                              else None),
                                               resume=persist_resume,
                                               interrupt=interrupt,
                                               on_frame=on_frame)
@@ -392,33 +431,44 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 _, final_sum, pending, ranges = out
                 logging.info("Aborting persistent render; checkpointing "
                              "(%d in-flight paths recorded)", len(pending))
-                checkpoint.save_persistent(ckpt_path, final_sum, pending,
-                                           ranges, spp, (r.height, r.width))
-                logging.info("Wrote checkpoint %s (resume with --resume)",
-                             ckpt_path)
+                if _rank0():
+                    checkpoint.save_persistent(ckpt_path, final_sum, pending,
+                                               ranges, spp,
+                                               (r.height, r.width))
+                    logging.info("Wrote checkpoint %s (resume with "
+                                 "--resume)", ckpt_path)
                 return 130
             fb = out
         else:
             prev_accum = accum
             p = start_pass
             npx = r.width * r.height
+            # in a group SIGINT only sets a flag: rank 0 turns it into an
+            # X key that every rank takes after the same pass
+            sigint = []
+            if r.n_ranks > 1:
+                import signal
+                prev_sigint = signal.signal(
+                    signal.SIGINT, lambda *_: sigint.append(True))
             try:
                 with _KeyPoller() as keys:
                     for p in range(start_pass, spp):
                         prev_accum = accum  # pre-update buffer (checkpoint)
                         accum = r.render_pass(accum, p, spp)
-                        _status(p + 1, spp, t0, r.width, r.height)
+                        if _rank0():
+                            _status(p + 1, spp, t0, r.width, r.height)
                         if preview_srv is not None:
                             preview_srv.update(accum.cpu().numpy(),
                                                (p + 1) * npx, spp * npx)
-                        if preview_every and (p + 1) % int(preview_every) \
-                                == 0:
+                        if preview_every and _rank0() and \
+                                (p + 1) % int(preview_every) == 0:
                             from craytpu_torch.io.png import write_png
                             write_png(preview_path, accum.cpu().numpy(),
                                       {"Samples per pixel": str(p + 1)})
                         # S=abort+save partial, X=abort(checkpoint),
                         # P=pause (ui.c:190-233)
-                        k = keys.poll()
+                        k = "x" if sigint else keys.poll()
+                        k = _group_key(k if _rank0() else None)
                         if k == "p":
                             sys.stderr.write("\n[paused — any key resumes]")
                             sys.stderr.flush()
@@ -438,10 +488,15 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 sys.stderr.write("\n")
                 logging.info("Aborting render (pass %d/%d); checkpointing",
                              p, spp)
-                checkpoint.save(ckpt_path, prev_accum.cpu().numpy(), p, spp)
-                logging.info("Wrote checkpoint %s (resume with --resume)",
-                             ckpt_path)
+                if _rank0():
+                    checkpoint.save(ckpt_path, prev_accum.cpu().numpy(), p,
+                                    spp)
+                    logging.info("Wrote checkpoint %s (resume with "
+                                 "--resume)", ckpt_path)
                 accum = prev_accum
+            finally:
+                if r.n_ranks > 1:
+                    signal.signal(signal.SIGINT, prev_sigint)
             fb = accum.cpu().numpy()
         render_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -453,8 +508,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
     logging.info("Finished render in %s", logging.smart_time(render_ms))
 
     # ---- write image (main.c:30, c-ray.c:85-111) ----
-    Renderer(scene=scene, compiled=cscene, framebuffer=fb,
-             render_time_ms=render_ms).write_image()
+    if _rank0():
+        Renderer(scene=scene, compiled=cscene, framebuffer=fb,
+                 render_time_ms=render_ms).write_image()
     return 130 if interrupted else 0
 
 

@@ -872,14 +872,6 @@ class WavefrontRenderer:
                 acc = self.render_pass(acc, p, spp)
             return acc.cpu().numpy()
         B = min(self.tile_rays, _next_pow2(npix))
-        # refill quantum: a sixteenth of the pool
-        Q = B // 16
-        k_env = os.environ.get("CRAYTPU_POOL_K")
-        k = int(k_env) if k_env else 1
-        force_k = bool(k_env)   # an explicit k also holds in the drain
-        stats = _PoolStats(bool(os.environ.get("CRAYTPU_POOL_STATS")),
-                           bool(os.environ.get("CRAYTPU_POOL_SYNC")), dev)
-
         total = npix * spp
         if resume is not None:
             final = torch.tensor(np.asarray(resume["final_sum"], np.float32),
@@ -889,39 +881,80 @@ class WavefrontRenderer:
         else:
             final = torch.zeros((npix, 4), dtype=torch.float32, device=dev)
             queue = GidQueue(ranges=[[0, total]])
+        out = self._run_pool(B, spp, _QueueFeed(queue), final, total,
+                             progress, interrupt, on_frame)
+        if isinstance(out, tuple):
+            return out
+        # divide by a tensor: on CUDA, tensor / python float multiplies
+        # by the reciprocal
+        final = (out / out.new_tensor(float(spp))).reshape(H, W, 4)
+        return final.cpu().numpy() if fetch else final
 
-        def take(n):
-            """Next n queue entries as fresh lanes built on the host, and
-            how many were taken. Entries past the end are padded dead."""
-            ids = queue.take(n)
-            took = ids.shape[0]
-            ids_pad = np.concatenate(
-                [ids, np.zeros(n - took, np.int64)]) if took < n else ids
-            px = ids_pad % npix
-            xs_f, ys_f = self._sched_host
-            xs = torch.tensor(xs_f[px], device=dev)
-            ys = torch.tensor(ys_f[px], device=dev)
-            passes = torch.tensor((ids_pad // npix).astype(np.int32),
-                                  device=dev)
-            o, d, s = self._init_rays(xs, ys, passes, spp)
-            lane = torch.tensor(
-                (ys_f[px].astype(np.int64) * W + xs_f[px]).astype(np.int32),
-                device=dev)
-            falive = torch.tensor(np.arange(n) < took, device=dev)
-            return self._fresh_pool(o, d, s, lane, passes, falive), took
+    # hooks of the pool loop that a group of ranks overrides
+    # (parallel/pool_shard.py): one rank's values are the group's
+    n_ranks = 1
+
+    def _group_step(self, lagged, interrupt):
+        """Once a pool step: (the lagged live count, or None before the
+        first one is read; whether to stop at an interrupt)."""
+        return lagged, interrupt is not None and bool(interrupt())
+
+    def _group_count(self, n: int) -> int:
+        """An exact live count at the drain."""
+        return n
+
+    def _host_lanes(self, ids, n: int, spp: int) -> Pool:
+        """n fresh lanes built on the host from queue ids (at most n);
+        lanes past the ids are dead."""
+        npix = self.width * self.height
+        dev = self.device
+        took = ids.shape[0]
+        ids_pad = np.concatenate(
+            [ids, np.zeros(n - took, np.int64)]) if took < n else ids
+        px = ids_pad % npix
+        xs_f, ys_f = self._sched_host
+        xs = torch.tensor(xs_f[px], device=dev)
+        ys = torch.tensor(ys_f[px], device=dev)
+        passes = torch.tensor((ids_pad // npix).astype(np.int32), device=dev)
+        o, d, s = self._init_rays(xs, ys, passes, spp)
+        lane = torch.tensor(
+            (ys_f[px].astype(np.int64) * self.width + xs_f[px]).astype(
+                np.int32), device=dev)
+        falive = torch.tensor(np.arange(n) < took, device=dev)
+        return self._fresh_pool(o, d, s, lane, passes, falive)
+
+    def _block_lanes(self, block, n: int, spp: int) -> Pool:
+        """The n fresh lanes of a feed block (_QueueFeed.take)."""
+        kind, lo, live, _ = block
+        if kind == "dev":
+            npix = self.width * self.height
+            return self._prime_dev(n, lo % npix, lo // npix, live, spp)
+        return self._host_lanes(lo, n, spp)
+
+    def _run_pool(self, B: int, spp: int, feed, final, total: int,
+                  progress=None, interrupt=None, on_frame=None):
+        """The persistent loop over a pool of B lanes fed by `feed`
+        (_QueueFeed, or a rank's _SplitFeed), summing radiance into
+        `final` (npix, 4) in place. Returns `final` with every lane
+        flushed, or the interrupted tuple of render_persistent. In a
+        group of ranks every decision (refill, shrink, drain, stop) is
+        the group's, so all ranks step in lockstep."""
+        dev = self.device
+        # refill quantum: a sixteenth of the pool
+        Q = B // 16
+        k_env = os.environ.get("CRAYTPU_POOL_K")
+        k = int(k_env) if k_env else 1
+        force_k = bool(k_env)   # an explicit k also holds in the drain
+        stats = _PoolStats(bool(os.environ.get("CRAYTPU_POOL_STATS")),
+                           bool(os.environ.get("CRAYTPU_POOL_SYNC")), dev)
+        D = self.n_ranks
 
         # prime the pool — on the device from the queue head when the head
-        # is a contiguous range (always, except pending-id resumes)
-        if not queue.pending and queue.ranges:
-            lo, hi = queue.ranges[0]
-            took = min(B, hi - lo)
-            pool = self._prime_dev(B, lo % npix, lo // npix, took, spp)
-            queue.ranges[0][0] += took
-            if queue.ranges[0][0] >= hi:
-                queue.ranges.pop(0)
-        else:
-            pool, took = take(B)
-        stale_n = took                 # lagged upper bound on live lanes
+        # is a contiguous range (always, except pending-id resumes and
+        # host-split queues)
+        block = feed.take(B)
+        pool = self._block_lanes(block, B, spp)
+        stale_n = block[3]             # lagged upper bound on live lanes
         counts: list = []              # in-flight [count handle, adjust]
         while True:
             Bc = pool.alive.shape[0]
@@ -933,52 +966,55 @@ class WavefrontRenderer:
             counts.append([_count_to_host(n_live), 0])
             # lag-1 count: read step i-1's count while the device runs
             # step i
+            lagged = None
             if len(counts) >= 2:
                 handle, adj = counts.pop(0)
-                stale_n = _count_value(handle) + adj
-            if progress is not None:
-                progress(total - queue.left() - min(stale_n, Bc), total)
-
+                lagged = _count_value(handle) + adj
             # interrupt latency bound: poll once per step, not only at
             # refill boundaries
-            if interrupt is not None and interrupt():
-                return self._persistent_interrupt(final, pool, npix, queue)
+            lagged, stop = self._group_step(lagged, interrupt)
+            if lagged is not None:
+                stale_n = lagged
+            if progress is not None:
+                progress(max(total - feed.left_total()
+                             - D * min(stale_n, Bc), 0), total)
+            if stop:
+                return self._persistent_interrupt(final, pool, feed)
 
-            if queue.left() > 0 and Bc == B and stale_n <= B - Q:
+            if feed.left() > 0 and Bc == B and stale_n <= B - Q:
                 # refill on the LAGGED count: it only overestimates the
                 # live set, so the tail lanes it clears are dead. m rounds
                 # down to a power of two.
                 m = min((B - stale_n) // Q, 8,
-                        max((queue.left() + Q - 1) // Q, 1))
+                        max((feed.left() + Q - 1) // Q, 1))
                 while m & (m - 1):
                     m &= m - 1
                 stats.start()
-                if queue.pending:
+                block = feed.take(m * Q)
+                if block[0] == "dev":
+                    _, lo, live, _ = block
+                    npix = self.width * self.height
+                    pool = self._flush_pack_refill(
+                        B, m, Q, final, pool, lo % npix, lo // npix, live,
+                        spp)
+                else:
                     # resume path: non-contiguous re-enqueued ids go
                     # through the host-side fresh-ray builder
-                    fresh, took = take(m * Q)
-                    pool = self._flush_pack_refill_host(B, m, Q, final, pool,
-                                                        fresh)
-                else:
-                    lo, hi = queue.ranges[0]
-                    took = min(m * Q, hi - lo)
-                    pool = self._flush_pack_refill(
-                        B, m, Q, final, pool, lo % npix, lo // npix, took,
-                        spp)
-                    queue.ranges[0][0] += took
-                    if queue.ranges[0][0] >= hi:
-                        queue.ranges.pop(0)
+                    pool = self._flush_pack_refill_host(
+                        B, m, Q, final, pool,
+                        self._host_lanes(block[1], m * Q, spp))
+                took = block[3]
                 stats.add("refill", ("refill", m))
                 # counts issued before this refill undercount by took
                 for e in counts:
                     e[1] += took
                 stale_n += took
                 if on_frame is not None:
-                    on_frame(final, total - queue.left())
-            elif queue.left() == 0:
+                    on_frame(final, total - feed.left_total())
+            elif feed.left() == 0:
                 # drain: exact count, early exit, shrink buckets
                 handle, adj = counts[-1]
-                stale_n = _count_value(handle) + adj
+                stale_n = self._group_count(_count_value(handle) + adj)
                 counts.clear()
                 if stale_n == 0:
                     break
@@ -992,6 +1028,7 @@ class WavefrontRenderer:
                     stats.add("shrink", ("shrink", Bn))
                 if pool.alive.shape[0] <= self.DRAIN_DEV_MAX \
                         and interrupt is None:
+                    # each rank drains its own pool: no collective inside
                     stats.start()
                     pool, n = self._drain_all(pool)
                     stats.add("step", ("drain_all", pool.alive.shape[0]), n)
@@ -999,24 +1036,16 @@ class WavefrontRenderer:
         self._final_flush(final, pool)
         if stats.on:
             self.pool_stats = stats.report(B, total)
-        # divide by a tensor: on CUDA, tensor / python float multiplies
-        # by the reciprocal
-        final = (final / final.new_tensor(float(spp))).reshape(H, W, 4)
-        return final.cpu().numpy() if fetch else final
+        return final
 
     def fetch_partial(self, final) -> np.ndarray:
         """Host copy of the in-progress radiance-sum frame (npix, 4) —
         the preview fetch hook."""
         return final.cpu().numpy()
 
-    def _persistent_interrupt(self, final, pool: Pool, npix: int,
-                              queue: GidQueue):
-        """Checkpoint state at an interrupt: flush completed (dead) lanes'
-        radiance, collect in-flight (pixel, pass) queue ids to re-trace,
-        and keep the un-taken queue (any not-yet-consumed re-enqueued ids
-        plus the remaining ranges). Returns
-        ("interrupted", final_sum (npix,4) np, pending ids, ranges)."""
-        self._final_flush(final, pool)
+    def _inflight_ids(self, pool: Pool) -> np.ndarray:
+        """The queue ids of the pool's live lanes (int64)."""
+        npix = self.width * self.height
         alive_h = pool.alive.cpu().numpy()
         lane_h = pool.lane.cpu().numpy()[alive_h]
         pass_h = pool.lpass.cpu().numpy()[alive_h]
@@ -1025,10 +1054,94 @@ class WavefrontRenderer:
         xs_f, ys_f = self._sched_host
         inv = np.empty(npix, np.int64)
         inv[ys_f.astype(np.int64) * self.width + xs_f] = np.arange(npix)
-        pend = pass_h.astype(np.int64) * npix + inv[lane_h]
-        pend = np.concatenate([pend, np.asarray(queue.pending, np.int64)])
-        return ("interrupted", final.cpu().numpy(), pend,
-                [list(r) for r in queue.ranges])
+        return pass_h.astype(np.int64) * npix + inv[lane_h]
+
+    def _persistent_interrupt(self, final, pool: Pool, feed):
+        """Checkpoint state at an interrupt: flush completed (dead) lanes'
+        radiance, collect in-flight (pixel, pass) queue ids to re-trace,
+        and keep the un-taken queue (any not-yet-consumed re-enqueued ids
+        plus the remaining ranges). Returns
+        ("interrupted", final_sum (npix,4) np, pending ids, ranges)."""
+        self._final_flush(final, pool)
+        pending, ranges = feed.tail()
+        pend = np.concatenate([self._inflight_ids(pool),
+                               np.asarray(pending, np.int64)])
+        return ("interrupted", final.cpu().numpy(), pend, ranges)
+
+
+class _QueueFeed:
+    """The pool loop's queue: pending ids, then ranges (GidQueue), held
+    whole by every rank of a group. One rank takes contiguous range heads
+    as device-generated blocks (unless dev_ranges is False) and pending
+    ids as host-built lanes; rank r of D takes D*n ids at a time and
+    builds its lanes from the r-th n of them on the host (the JAX
+    package's _ids_to_dev split). A device block stops at the end of its
+    range, so a queue of many short ranges (a tile's passes) fills the
+    pool faster from the host.
+
+    take(n) -> (kind, lo, live, bound): kind "dev" (queue ids lo ..
+    lo + live - 1 live, the rest of the n lanes dead) or "host" (lo is the
+    rank's ids); bound is the most live lanes the block adds on any rank,
+    the same number on every rank."""
+
+    def __init__(self, queue: GidQueue, rank: int = 0, world: int = 1,
+                 dev_ranges: bool = True):
+        self.queue, self.rank, self.world = queue, rank, world
+        self.dev_ranges = dev_ranges and world == 1
+
+    def left(self) -> int:
+        return self.queue.left()
+
+    left_total = left
+
+    def take(self, n: int) -> tuple:
+        q = self.queue
+        if self.dev_ranges and not q.pending and q.ranges:
+            lo, hi = q.ranges[0]
+            took = min(n, hi - lo)
+            q.ranges[0][0] += took
+            if q.ranges[0][0] >= hi:
+                q.ranges.pop(0)
+            return ("dev", lo, took, took)
+        ids = q.take(self.world * n)
+        mine = ids[self.rank * n:(self.rank + 1) * n]
+        return ("host", mine, mine.shape[0], min(n, ids.shape[0]))
+
+    def tail(self) -> tuple:
+        """(pending ids, ranges) not yet taken, reported by rank 0 only
+        (every rank holds the same queue)."""
+        if self.rank != 0:
+            return [], []
+        return (list(self.queue.pending),
+                [list(r) for r in self.queue.ranges])
+
+
+class _SplitFeed:
+    """Rank r's share of a queue split evenly over the ranks: ids
+    [lo, lo + stride), of which those at or past cap are dead padding (an
+    uneven split's last shares). Every rank's share has the same length,
+    so every rank takes the same blocks at the same steps."""
+
+    def __init__(self, lo: int, stride: int, cap: int, world: int):
+        self.lo, self.stride, self.cap, self.world = lo, stride, cap, world
+        self.pos = 0
+
+    def left(self) -> int:
+        return self.stride - self.pos
+
+    def left_total(self) -> int:
+        return self.world * self.left()
+
+    def take(self, n: int) -> tuple:
+        t = min(n, self.stride - self.pos)
+        lo = self.lo + self.pos
+        self.pos += t
+        return ("dev", lo, max(0, min(t, self.cap - lo)), t)
+
+    def tail(self) -> tuple:
+        lo = self.lo + self.pos
+        hi = min(self.lo + self.stride, self.cap)
+        return [], ([[lo, hi]] if hi > lo else [])
 
 
 def _take(carry: tuple, order) -> tuple:

@@ -16,6 +16,12 @@ startRender{ getWork / submitWork ... } -> goodbye.
 
 Workers and the master's local share render on the CUDA card unless the
 caller passes device="cpu" (the CLI does under CRAYTPU_PLATFORM=cpu).
+
+A worker or master may run as a group of ranks (parallel/dist.py, one
+rank per card): rank 0 owns the sockets and hands every job (assets,
+scene, tile) to the other ranks (follow_jobs) over the group, and every
+rank renders each tile through ShardedPoolRenderer.render_ids. The wire
+format does not change.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import time
 
 import numpy as np
 
+from craytpu_torch.parallel import dist
 from craytpu_torch.utils import fileio
 from craytpu_torch.utils import logging
 from craytpu_torch.version import __version__, REFERENCE_VERSION
@@ -86,10 +93,10 @@ def render_tile(renderer, tile_dict, spp, tile_w, tile_h):
     Same per-(pixel, pass) streams as a whole-frame render, so tile-based
     cluster renders match local ones up to float accumulation order.
 
-    A renderer with render_ids (the sharded persistent-pool renderer,
-    not ported yet; it returns the frame's radiance sum on the host)
-    maps the tile to its contiguous ranges of the tile-order pixel
-    schedule, one per pass, and renders them as one pool. The
+    A renderer with render_ids (ShardedPoolRenderer, over a group of
+    ranks; it returns the frame's radiance sum on the host) maps the
+    tile to its contiguous ranges of the tile-order pixel schedule, one
+    per pass, and renders them as one pool on every rank. The
     single-card renderer traces the tile's full-size pixel grid
     once a pass (trace_batch), sums the passes in order and divides by
     spp as a float32 tensor (a division by a Python float on CUDA is a
@@ -193,11 +200,35 @@ def _worker_build_renderer(scene_text, overrides, asset_path, device=None):
 
 
 def _local_device_count(renderer) -> int:
-    """Devices the worker renders on, reported in its ready message."""
-    import torch
-    if renderer.device.type == "cuda":
-        return torch.cuda.device_count()
-    return 1
+    """Cards the worker renders on, reported in its ready message: the
+    group's (distinct cards of its ranks), or the one card of a single
+    process."""
+    return getattr(renderer, "n_cards", 1)
+
+
+def _hand_out(job: tuple) -> None:
+    """Rank 0 of a group hands a job to the other ranks (follow_jobs);
+    nothing for a single process."""
+    if dist.multi_rank():
+        dist.broadcast_object(job, group=dist.job_group())
+
+
+def follow_jobs(renderer=None, device=None) -> int:
+    """The loop of a rank other than 0 in a worker or master group: run
+    the jobs rank 0 hands out (_hand_out) until it says stop. Jobs:
+    ("assets", encoded files), ("scene", text, overrides, asset path),
+    ("tile", tile, spp, tile w, tile h) and ("stop",)."""
+    while True:
+        job = dist.broadcast_object(group=dist.job_group())
+        if job[0] == "stop":
+            return 0
+        if job[0] == "assets":
+            fileio.set_worker_cache(fileio.decode_cache(job[1]))
+        elif job[0] == "scene":
+            _, renderer = _worker_build_renderer(job[1], job[2], job[3],
+                                                 device)
+        elif job[0] == "tile":
+            render_tile(renderer, *job[1:])
 
 
 def serve_connection(conn: socket.socket, device=None) -> bool:
@@ -223,9 +254,12 @@ def serve_connection(conn: socket.socket, device=None) -> bool:
             send_json(conn, {"action": "goodbye"})
             return False
         elif action == "loadAssets":
+            _hand_out(("assets", msg.get("files", {})))
             fileio.set_worker_cache(fileio.decode_cache(msg.get("files", {})))
             send_json(conn, {"action": "ok"})
         elif action == "loadScene":
+            _hand_out(("scene", msg["scene"], msg.get("overrides"),
+                       msg.get("assetPath", "")))
             scene, renderer = _worker_build_renderer(
                 msg["scene"], msg.get("overrides"), msg.get("assetPath", ""),
                 device)
@@ -256,6 +290,7 @@ def serve_connection(conn: socket.socket, device=None) -> bool:
                     break
                 t = work["tile"]
                 t0 = time.monotonic()
+                _hand_out(("tile", t, spp, tw, th))
                 buf = render_tile(renderer, t, spp, tw, th)
                 dt_ms = (time.monotonic() - t0) * 1e3
                 completed += 1
@@ -275,7 +310,10 @@ def serve_connection(conn: socket.socket, device=None) -> bool:
 def start_worker(port: int = DEFAULT_PORT, max_sessions: int | None = None,
                  device=None) -> int:
     """startWorkerServer (worker.c:348-438): accept masters in a loop,
-    rendering on `device` (None = the CUDA card)."""
+    rendering on `device` (None = the CUDA card). In a group, rank 0
+    listens and the other ranks follow its jobs."""
+    if dist.rank() != 0:
+        return follow_jobs(device=device)
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     srv.bind(("0.0.0.0", port))
@@ -296,6 +334,7 @@ def start_worker(port: int = DEFAULT_PORT, max_sessions: int | None = None,
         if not keep_going:
             break
     srv.close()
+    _hand_out(("stop",))
     return 0
 
 
@@ -381,7 +420,10 @@ def render_clustered(scene, renderer, clients, spp: int | None = None,
     One serving thread per worker + (optionally) local rendering in this
     thread, all pulling from one TileQueue. Returns the (H, W, 4) float
     framebuffer (linear, y-up). on_stats(worker_name, completed, avg_ms)
-    receives each worker's ~1 Hz stats push (server.c:240-244)."""
+    receives each worker's ~1 Hz stats push (server.c:240-244). Called
+    by rank 0 of a group, whose other ranks run follow_jobs: each local
+    tile is rendered by every rank, and the group is told to stop at the
+    end."""
     from craytpu_torch.runtime.tile import quantize_image
     p = scene.prefs
     spp = spp or p.sample_count
@@ -439,12 +481,17 @@ def render_clustered(scene, renderer, clients, spp: int | None = None,
     for t in threads:
         t.start()
 
+    def local(idx):
+        # in a group every rank renders the tile (follow_jobs)
+        _hand_out(("tile", tdicts[idx], spp, tw, th))
+        place(idx, render_tile(renderer, tdicts[idx], spp, tw, th))
+
     if render_local or not clients:
         while True:
             idx = queue.next_tile("local")
             if idx is None:
                 break
-            place(idx, render_tile(renderer, tdicts[idx], spp, tw, th))
+            local(idx)
     for t in threads:
         t.join()
     # any tiles reclaimed from dead workers after local finished
@@ -453,5 +500,6 @@ def render_clustered(scene, renderer, clients, spp: int | None = None,
         if idx is None:
             time.sleep(0.05)
             continue
-        place(idx, render_tile(renderer, tdicts[idx], spp, tw, th))
+        local(idx)
+    _hand_out(("stop",))
     return fb

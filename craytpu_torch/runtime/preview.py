@@ -195,21 +195,35 @@ class PreviewServer:
         return json.dumps(out)
 
 
-def frame_hook(srv: PreviewServer, renderer, spp: int,
+def frame_hook(srv: PreviewServer | None, renderer, spp: int,
                every_s: float = 2.0):
     """render_persistent's on_frame(final_sum, done) callback that feeds
     `srv`: the running mean of the completed paths, fetched to the host at
     most once every `every_s` seconds (the fetch is a full device-to-host
-    copy, 33 MB at 1080p)."""
+    copy, 33 MB at 1080p).
+
+    A renderer over a group of ranks (parallel/pool_shard.py) sums the
+    ranks' partials in each fetch, a collective, so every rank calls the
+    hook (srv is None but on rank 0) and the ranks fetch at the same
+    refills: after each sixteenth of the frame's paths, not on a clock."""
     npix = renderer.width * renderer.height
     last = [0.0]
+    group = getattr(renderer, "n_ranks", 1) > 1
+    mark = [0]
 
     def on_frame(final_dev, done):
-        now = time.perf_counter()
-        if now - last[0] < every_s or done <= 0:
-            return
-        last[0] = now
+        if group:
+            if done * 16 < (mark[0] + 1) * npix * spp:
+                return
+            mark[0] = done * 16 // (npix * spp)
+        else:
+            now = time.perf_counter()
+            if now - last[0] < every_s or done <= 0:
+                return
+            last[0] = now
         fs = renderer.fetch_partial(final_dev)
+        if srv is None:
+            return
         denom = max(done / npix, 1e-9)
         srv.update((fs / denom).reshape(renderer.height, renderer.width, 4),
                    done, npix * spp)
