@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. build   — nvcc builds both kernels from craytpu_torch/csrc (in
+  1. build   — nvcc builds the three kernels from craytpu_torch/csrc (in
                parallel) into build/craytpu_torch/, and prints each
                kernel's registers a thread, stack frame and spill bytes
                (local memory) and static shared memory, as ptxas -v
@@ -18,6 +18,8 @@ Phases (any failure exits non-zero and prints no result line):
                half primary, half random (a compacted bucket), and the
                1080p frame's first 2^20-lane primary batch, timed whole
                and checked on every 16th lane (rays are independent).
+               K3 (dense closest hit): K2's 2^16 rays, against its plain
+               version on the card (on the CPU it would take minutes).
   3. golden  — stress_highpoly and stress_instances at 80x50, 4 spp,
                through the kernels, against goldens/*_80_4.png at the
                thresholds of craytpu_torch/utils/golden.py.
@@ -146,8 +148,31 @@ Phases (any failure exits non-zero and prints no result line):
                stress goldens at 80x50, 4 spp, through the 2-rank CLI
                (CRAYTPU_COORDINATOR and friends; exactly one PNG), and
                craytpu_torch.entry.dryrun_multichip(2).
+  12. dense  — CRAYTPU_TRAVERSAL=dense, the dense search (K3) in place of
+               the walk (K2). On the 1080p frame's first 2^20-lane
+               primary batch K3's winners against K2's: hit/miss
+               identical, (inst, prim) equal on >= 0.999 of the lanes, K1
+               records bit-equal where they are; K3's time there; K3
+               bit-equal to its plain version on every 16th lane of that
+               launch and on a 16,384-lane launch of those lanes. Both
+               stress goldens at 80x50, 4 spp, per pass (render) and
+               persistent (make_renderer), K3 launched and K2 not. A
+               1-spp persistent 1080p frame picks the largest spp of {4,
+               2, 1} whose three frames fit DENSE_FRAMES_S; at that spp
+               `CRAYTPU_TRAVERSAL=dense python3 -m craytpu_torch
+               assets/stress_highpoly.json -d 1920x1080` (exit 0, a
+               1920x1080 PNG), and persistent frames in turns (dense,
+               walk, walk, dense), paths/s, the first dense frame's
+               launches (counts set to 0 just before, read just after; K3
+               must launch and K2 must not), both frames' peak device
+               memory, and the kernel-time breakdown of phase 4 for a
+               dense frame. Last,
+               a diff_geometry fwd+bwd on tests/test_vertex_grad.py's
+               cube under dense against the walk's: image and gradients
+               within rtol=2e-4, atol=1e-6.
 Then one line {"kernels": [...]} (launches_sharded: each rank's launches
-in phase 11's 2-rank frame) and, last, the ok line with the device.
+in phase 11's 2-rank frame; K3's launches: phase 12's dense frame) and,
+last, the ok line with the device.
 Needs one CUDA card; exits 1 without one.
 """
 
@@ -175,6 +200,16 @@ K1_OPS_LANE = 1851
 # tri_wide (32-float) and inst_wide (28-float) rows count once per row read
 K1_BYTES_LANE = (7 + 2 + 16) * 4
 K1_BYTES_TRI_ROW, K1_BYTES_INST_ROW = 32 * 4, 28 * 4
+# The dense search's f32 operations, counted from csrc/dense_hit.cu
+# (compares not counted), none fused, so they run at the card's f32 lane
+# rate: half the 67 TFLOP/s peak, which counts an fma as two operations.
+# Every live (ray, triangle) pair needs det (5), t*det (6), 1/det and t:
+# K3_OPS_T. Only a pair whose t passes 0 <= t <= the ray's final best
+# needs u*det and v*det (11 each), u, v and u + v to be decided:
+# K3_OPS_UV more (K3 as written spends both on every pair). A sphere
+# instance costs a K2 sphere test.
+K3_OPS_T, K3_OPS_UV = 13, 25
+F32_LANE_OPS_PER_S = F32_OPS_PER_S / 2
 # the main path's frame
 W, H, SPP = 1920, 1080, 4
 
@@ -445,7 +480,97 @@ def phase_kernels(torch) -> dict:
           f"{nbytes / 1e6:.2f} MB, {B1 * K1_OPS_LANE:.3e} f32 ops; kernel "
           f"{ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+
+    # ---- K3 (the dense search) on K2's 2^16 mixed rays, against its
+    # plain version on the card (on the CPU it would take minutes)
+    out["dense_hit"] = check_dense_kernel(torch, geom, cs_dev.dense, oc,
+                                          dc, lc)
     return out
+
+
+def dense_uv_pairs(torch, geom, dense, o_w, d_w, limit, best_t) -> int:
+    """Live (ray, triangle) pairs whose t, as dense_hit_plain computes it,
+    passes 0 <= t <= best_t, the ray's final best (its hit's t, or its
+    limit on a miss). In any order of the triangles these pairs need u
+    and v; every other pair is rejected on its t alone."""
+    from craytpu_torch.ops import dense_isect as dx
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.scene.device import INST_SPHERE
+    live = limit > 0
+    o_w, d_w, best = o_w[live], d_w[live], best_t[live][:, None]
+    B = o_w.shape[0]
+    chunk = max(dx.PLAIN_CHUNK_ELEMS // max(B, 1) // dx.TRI_BLOCK,
+                1) * dx.TRI_BLOCK
+    total = torch.zeros((), dtype=torch.int64, device=o_w.device)
+    for i, (kind, first, n, _) in enumerate(dense.plan.tolist()):
+        if kind == INST_SPHERE or n == 0:
+            continue
+        o, d = trv.object_ray(geom.inst_Ainv[i], geom.inst_offset[i], o_w,
+                              d_w)
+        for c in range(0, n, chunk):
+            r = dense.table[first + c:first + min(c + chunk, n)]
+            det = d[:, 0:1] * r[:, 0] + d[:, 1:2] * r[:, 1] \
+                + d[:, 2:3] * r[:, 2]
+            td = o[:, 0:1] * -r[:, 0] + o[:, 1:2] * -r[:, 1] \
+                + o[:, 2:3] * -r[:, 2] + r[:, 15]
+            t = td * (torch.ones_like(det) / det)
+            total += ((t >= 0.0) & (t <= best)).sum()
+    return int(total)
+
+
+def dense_bound(dense, live: int, B: int, uv_pairs: int) -> tuple:
+    """K3's bound for B rays of which `live` are live and `uv_pairs` live
+    pairs need u and v (dense_uv_pairs): (bound ms, what bounds it, live
+    ray-triangle pairs). Operations: K3_OPS_T a live pair, K3_OPS_UV more
+    a u, v pair and a K2 sphere test a live ray and sphere instance, at
+    the f32 lane rate; bytes: each ray's 7 input and 3 output words, the
+    table and the plan once."""
+    from craytpu_torch.scene.device import INST_SPHERE
+    plan = dense.plan.tolist()
+    tris = sum(n for k, _, n, _ in plan if k != INST_SPHERE)
+    sph = sum(1 for k, _, _, _ in plan if k == INST_SPHERE)
+    pairs = live * tris
+    ops = (pairs * K3_OPS_T + uv_pairs * K3_OPS_UV
+           + live * sph * K2_OPS_SPHERE)
+    nbytes = (B * (7 + 3) * 4 + dense.table.numel() * 4
+              + dense.plan.numel() * 4)
+    t_ops = ops / F32_LANE_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", pairs)
+
+
+def check_dense_kernel(torch, geom, dense, o, d, limit) -> dict:
+    """K3 on CUDA rays (o, d, limit) bit-equal to its plain version on the
+    same tensors, timed; its line of the kernels record (launches 0)."""
+    from craytpu_torch.ops import dense_isect as dx
+    B = o.shape[0]
+    got = dx.dense_hit(geom, o, d, limit, dense)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = dx.dense_hit_plain(geom, dense, o, d, limit)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    bit_diff(got.inst, want.inst, "K3 inst")
+    bit_diff(got.prim, want.prim, "K3 prim")
+    err = bit_diff(got.t, want.t, "K3 t")
+    ms = cuda_ms(lambda: dx.dense_hit(geom, o, d, limit, dense), 5)
+    live = int((limit > 0).sum())
+    uv = dense_uv_pairs(torch, geom, dense, o, d, limit, want.t)
+    bound, by, pairs = dense_bound(dense, live, B, uv)
+    print(f"K3 dense_hit: B={B} ({live} live) bit-equal to the plain "
+          f"version; {pairs:.3e} live ray-triangle pairs, {uv:.3e} of them "
+          f"need u and v; kernel "
+          f"{ms:.3f} ms, plain on card {plain_ms:.1f} ms, bound "
+          f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of it); "
+          f"{int((want.inst >= 0).sum())} hits", flush=True)
+    return dict(name="dense_hit", ok=True, route="cuda",
+                source="craytpu_torch/csrc/dense_hit.cu",
+                replaces="craytpu/ops/dense_isect.py:120", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
 
 
 def phase_golden(torch) -> None:
@@ -509,18 +634,19 @@ KERNEL_NAMES = {"closest_hit": "closest_hit_kernel",
                 "hitrec": "hitrec_kernel"}
 
 
-def print_frame_profile(torch, frame) -> None:
+def print_frame_profile(torch, frame, names=KERNEL_NAMES) -> None:
     """Each kernel's launches and time over one frame() (CUDA events
     around each launch, launch gaps included), then a profiled frame():
     the device time of each launch by batch size (from the launches'
-    order) and the whole device-time breakdown."""
+    order) and the whole device-time breakdown. names: wrapper name ->
+    kernel name, of the kernels the frame launches."""
     from craytpu_torch.ops import cuda_build
     with cuda_build.launch_timing() as times:
         frame()
     with cuda_build.launch_timing() as sizes:
-        prof = profile_frame(torch, frame, KERNEL_NAMES.values())
+        prof = profile_frame(torch, frame, names.values())
     by_name = prof["by_name"]
-    for name, k in KERNEL_NAMES.items():
+    for name, k in names.items():
         ev = times.get(name, [])
         dev = prof["launches"][k]
         total = [ms for key, (ms, _) in by_name.items() if k in key]
@@ -848,12 +974,22 @@ def fwd_bwd(torch, trace, params, *args):
 def counted(torch, fn) -> tuple:
     """(fn(), K2 launches, K1 launches): both counters set to 0 just
     before fn and read just after."""
+    out, n_k2, n_k1, _ = counted_all(fn)
+    return out, n_k2, n_k1
+
+
+def counted_all(fn) -> tuple:
+    """(fn(), K2, K1 and K3 launches): the counters set to 0 just before
+    fn and read just after."""
+    from craytpu_torch.ops import dense_isect as dx
     from craytpu_torch.ops import hitrec as hr
     from craytpu_torch.ops import traverse as trv
     trv.closest_hit.launches = 0
     hr.hitrec_record.launches = 0
+    dx.dense_hit.launches = 0
     out = fn()
-    return out, trv.closest_hit.launches, hr.hitrec_record.launches
+    return (out, trv.closest_hit.launches, hr.hitrec_record.launches,
+            dx.dense_hit.launches)
 
 
 def kernel_ms(fn) -> dict:
@@ -2249,6 +2385,207 @@ def phase_shard(torch, kernels: dict) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 12's three dense 1080p frames (the CLI's and two in turns with
+# the walk's) are kept near this many seconds by the spp they run at
+DENSE_FRAMES_S = 50.0
+
+
+def phase_dense(torch, kernels: dict) -> None:
+    """Phase 12: CRAYTPU_TRAVERSAL=dense, the dense search (K3) in place of
+    the walk (K2): K3's winners against K2's on the 1080p frame's first
+    primary batch, the goldens per pass and persistent, the CLI, the
+    persistent 1080p frame in turns with the walk's, and a diff_geometry
+    gradient against the walk's."""
+    from craytpu_torch.io.png import read_png_rgb
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer, render
+    from craytpu_torch.ops import dense_isect as dx
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.utils import golden
+
+    t_phase = time.perf_counter()
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    # ---- K3's winners against K2's on the first 2^20-lane primary batch:
+    # hit/miss identical, (inst, prim) equal on >= 0.999 of the lanes, K1
+    # records bit-equal where they are
+    o_b, d_b, lim_b = primary_batch(cs)
+    T = o_b.shape[0]
+    k2 = trv.closest_hit(cs.geom, o_b, d_b, lim_b, cs.tlas_end,
+                         cs.stack_depth, cs.layout)
+    k3 = dx.dense_hit(cs.geom, o_b, d_b, lim_b, cs.dense)
+    ms_b = cuda_ms(lambda: dx.dense_hit(cs.geom, o_b, d_b, lim_b, cs.dense),
+                   2)
+    # ---- K3 against its plain version at the frame's batch sizes: every
+    # 16th lane of this 2^20-lane launch, and a 16,384-lane launch (the
+    # frame's small batches) on the first of those lanes
+    sub = torch.arange(0, T, 16, device=o_b.device)
+    o_s, d_s, lim_s = o_b[sub], d_b[sub], lim_b[sub]
+    want = dx.dense_hit_plain(cs.geom, cs.dense, o_s, d_s, lim_s)
+    for field in ("inst", "prim", "t"):
+        bit_diff(getattr(k3, field)[sub], getattr(want, field),
+                 f"K3 {field} at every 16th lane of 2^20")
+    S = 16384
+    small = dx.dense_hit(cs.geom, o_s[:S], d_s[:S], lim_s[:S], cs.dense)
+    for field in ("inst", "prim", "t"):
+        bit_diff(getattr(small, field), getattr(want, field)[:S],
+                 f"K3 {field} at {S} lanes")
+    # u, v pairs of the whole batch, estimated from every 16th lane
+    uv = 16 * dense_uv_pairs(torch, cs.geom, cs.dense, o_s, d_s, lim_s,
+                             want.t)
+    del o_s, d_s, lim_s, want, small
+    n_hm = int(((k2.inst >= 0) != (k3.inst >= 0)).sum())
+    same = (k2.inst == k3.inst) & (k2.prim == k3.prim)
+    frac = float(same.float().mean())
+    recs = [hr.hitrec_record(cs.tri_wide, cs.inst_wide, o_b, d_b, h.t,
+                             h.prim, h.inst, cs.sphere_uv) for h in (k2, k3)]
+    bit_diff(recs[1][same], recs[0][same], "K1 records of K3's winners")
+    bound, _, pairs = dense_bound(cs.dense, T, T, uv)
+    kernels["dense_hit"]["ms_primary_batch"] = ms_b
+    print(f"dense: K3 on the 1080p primary batch B={T}: {ms_b:.2f} ms "
+          f"({pairs:.3e} pairs, about {uv:.3e} of them need u and v; bound "
+          f"{bound:.2f} ms, {100 * bound / ms_b:.1f}% of it); bit-equal to "
+          f"the plain version at every 16th lane and on a {S}-lane launch; "
+          f"against K2: "
+          f"{n_hm} hit/miss differences, (inst, prim) equal on {frac:.6f} "
+          f"of the lanes ({T - int(same.sum())} differ), K1 records "
+          f"bit-equal where equal; {int((k3.inst >= 0).sum())} hits",
+          flush=True)
+    if n_hm or frac < 0.999:
+        fail("dense: K3's winners against K2's on the primary batch")
+    del o_b, d_b, lim_b, k2, k3, recs, same
+
+    walk = make_renderer(cs)                      # built before the switch
+    prev = os.environ.get("CRAYTPU_TRAVERSAL")
+    os.environ["CRAYTPU_TRAVERSAL"] = "dense"
+    try:
+        # ---- both stress goldens, per pass and persistent
+        for name in ("stress_highpoly", "stress_instances"):
+            cs_g = compile_scene(load(name, {"width": 80, "height": 50,
+                                             "samples": 4}))
+            for path, fn in (
+                    ("per-pass", lambda: render(cs_g, spp=4)),
+                    ("persistent",
+                     lambda: make_renderer(cs_g).render_persistent(4))):
+                fb, n2, n1, n3 = counted_all(fn)
+                ok, within, mean_abs = golden.compare(fb, name, 80, 50, 4)
+                print(f"dense golden {name} 80x50 4spp {path}: within1lsb="
+                      f"{within:.5f} mean_abs={mean_abs:.4f} ok={ok}; "
+                      f"launches K3 {n3}, K2 {n2}, K1 {n1}", flush=True)
+                if not ok or n3 == 0 or n2 != 0:
+                    fail(f"dense golden {name} {path}")
+
+        # ---- the persistent 1080p frame: a 1-spp frame first picks the
+        # largest spp of {4, 2, 1} whose frames fit DENSE_FRAMES_S
+        ren = make_renderer(cs)
+        if ren.traversal_mode != "dense":
+            fail(f"dense: the renderer took {ren.traversal_mode}")
+        t0 = time.perf_counter()
+        ren.render_persistent(1, fetch=False)
+        torch.cuda.synchronize()
+        probe = time.perf_counter() - t0
+        spp = next((s for s in (4, 2, 1)
+                    if 3 * s * probe <= DENSE_FRAMES_S), 1)
+        print(f"dense: a persistent 1080p frame at 1 spp {probe:.2f} s -> "
+              f"frames at {spp} spp (of the scene's {SPP})", flush=True)
+        # ---- the CLI under dense, as a user runs it
+        cli_dir = os.path.join(REPO, "build", "chip_smoke", "dense_cli")
+        os.makedirs(cli_dir, exist_ok=True)
+        cmd = [sys.executable, "-m", "craytpu_torch",
+               os.path.join(REPO, "assets", "stress_highpoly.json"), "-s",
+               str(spp), "-d", f"{W}x{H}"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=cli_dir, env=cli_env(),
+                             capture_output=True, text=True, timeout=600)
+        png = os.path.join(cli_dir, "output", "stress_highpoly_0000.png")
+        if res.returncode != 0 or not os.path.exists(png):
+            fail(f"dense CLI exited {res.returncode}: {res.stderr[-2000:]}")
+        img = read_png_rgb(png)
+        if img.shape != (H, W, 3) or not img.max() > 0:
+            fail(f"dense CLI image: shape {img.shape}, max {img.max()}")
+        print(f"dense CLI CRAYTPU_TRAVERSAL=dense {' '.join(cmd[2:])}: exit "
+              f"0 in {time.perf_counter() - t0:.1f} s; wrote {img.shape}",
+              flush=True)
+
+        # ---- paths/s in turns: dense, walk, walk, dense; the first dense
+        # frame counts the launches (set to 0 just before, read just after)
+        # and its peak device memory
+        rates = {"dense": [], "walk": []}
+        peak = {}
+        for kind in ("dense", "walk", "walk", "dense"):
+            r = ren if kind == "dense" else walk
+            first = not rates[kind]
+            if first:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fb, n2, n1, n3 = counted_all(lambda: r.render_persistent(
+                spp, fetch=first and kind == "dense"))
+            torch.cuda.synchronize()
+            rates[kind].append(W * H * spp / (time.perf_counter() - t0))
+            if first:
+                peak[kind] = torch.cuda.max_memory_allocated()
+            if first and kind == "dense":
+                counts = (n3, n2, n1)
+                if fb.shape != (H, W, 4) or not np.isfinite(fb).all() \
+                        or not fb[..., :3].max() > 0.0:
+                    fail(f"dense frame: shape {fb.shape}, finite="
+                         f"{np.isfinite(fb).all()}")
+        n3, n2, n1 = counts
+        if n3 == 0 or n2 != 0 or n1 == 0:
+            fail(f"dense frame launched K3 {n3}x, K2 {n2}x, K1 {n1}x")
+        kernels["dense_hit"]["launches"] = n3
+        print(f"dense persistent frame stress_highpoly {W}x{H} {spp}spp "
+              f"bounces={ren.max_depth}: launches K3 {n3}, K1 {n1}, K2 {n2}; "
+              f"peak device memory {peak['dense'] / 2**30:.3f} GiB (walk "
+              f"{peak['walk'] / 2**30:.3f}); paths/s in turns "
+              f"(dense, walk, walk, dense): {fmt_rates(rates)}; dense/walk "
+              f"{np.median(rates['dense']) / np.median(rates['walk']):.4f}",
+              flush=True)
+        print_frame_profile(torch, lambda: ren.render_persistent(
+            spp, fetch=False), {"dense_hit": "dense_hit_kernel",
+                                "hitrec": "hitrec_kernel"})
+
+        # ---- a diff_geometry fwd+bwd on tests/test_vertex_grad.py's cube
+        cs_f = load_buf(FLAT_SCENE)
+        yy, xx = np.mgrid[20:44, 30:60]
+        fx = torch.tensor(xx.reshape(-1), dtype=torch.int32,
+                          device=cs_f.device)
+        fy = torch.tensor(yy.reshape(-1), dtype=torch.int32,
+                          device=cs_f.device)
+        grads = {}
+        for mode in ("auto", "dense"):
+            os.environ["CRAYTPU_TRAVERSAL"] = mode
+            tr = WavefrontRenderer(cs_f, bounces=2).make_trace_fn(
+                2, diff_geometry=True)
+            p = leaf_params(cs_f.params)
+            tp = cs_f.geom.tri_packed.clone().requires_grad_()
+            (img_f, _), n2, n1, n3 = counted_all(
+                lambda: fwd_bwd(torch, tr, p, tp, fx, fy, 0, 1))
+            grads[mode] = dict(table_grads(torch, p), tri_packed=tp.grad,
+                               image=img_f)
+            if (n3 > 0) != (mode == "dense") or (n2 > 0) == (mode == "dense"):
+                fail(f"dense grad ({mode}): K3 {n3}x, K2 {n2}x")
+        worst, g_ok = 0.0, True
+        for k, v in grads["auto"].items():
+            ok, _, ratio = close(grads["dense"][k], v, 2e-4, 1e-6)
+            g_ok &= ok
+            worst = max(worst, ratio)
+        g_max = float(grads["dense"]["tri_packed"].abs().max())
+        print(f"dense grad: flat cube fwd+bwd with diff_geometry=True, image "
+              f"and gradients (tri_packed max |g| {g_max:.3e}) against the "
+              f"walk's: ok={g_ok} (worst |d|/tol {worst:.3f})", flush=True)
+        if not g_ok or g_max == 0:
+            fail("dense grad: gradients against the walk's")
+    finally:
+        if prev is None:
+            os.environ.pop("CRAYTPU_TRAVERSAL", None)
+        else:
+            os.environ["CRAYTPU_TRAVERSAL"] = prev
+    print(f"dense: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2284,10 +2621,11 @@ def main() -> int:
     phase_cluster(torch, kernels)
     phase_tools(torch, pool_calls)
     phase_shard(torch, kernels)
+    phase_dense(torch, kernels)
     # the card again, so that the end of a long log names it
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [kernels["closest_hit"],
-                                  kernels["hitrec"]]}), flush=True)
+    print(json.dumps({"kernels": [kernels["closest_hit"], kernels["hitrec"],
+                                  kernels["dense_hit"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

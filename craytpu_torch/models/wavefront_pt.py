@@ -53,7 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from craytpu_torch.ops import sampler as smp
 from craytpu_torch.ops import shading
 from craytpu_torch.ops import vecmath as vm
-from craytpu_torch.ops.hitrec import Isect
+from craytpu_torch.ops.hitrec import TRAVERSALS, Isect
 from craytpu_torch.ops.nee import make_nee_fn
 from craytpu_torch.runtime.checkpoint import GidQueue
 from craytpu_torch.scene.compile import CompiledScene
@@ -244,7 +244,16 @@ class WavefrontRenderer:
         self.bg_fn = cscene.background_fn()
         self.bsdf_fns = cscene.bsdf_fns(kind)
         self.empty_scene = cscene.n_instances == 0
-        self.isect = Isect(cscene)
+        # CRAYTPU_TRAVERSAL: auto, simt and flash search with K2 (the BVH
+        # walk), dense with K3 (ops/dense_isect.py); the JAX package walks
+        # silently on any other value, the port refuses it
+        mode = os.environ.get("CRAYTPU_TRAVERSAL", "auto")
+        if mode not in TRAVERSALS:
+            raise ValueError(f"CRAYTPU_TRAVERSAL={mode!r}: one of "
+                             f"{', '.join(TRAVERSALS)}")
+        self.traversal_mode = mode
+        self.traversal = TRAVERSALS[mode]
+        self.isect = Isect(cscene, traversal=self.traversal)
         # CRAYTPU_DEBUG: every bounce step checks its outputs (_check_finite)
         self._debug = debug_enabled()
         # the last render_persistent's accounting under CRAYTPU_POOL_STATS
@@ -598,7 +607,7 @@ class WavefrontRenderer:
                     return o.new_zeros(B, 4)
                 return self.bg_fn(params, d)
             isect = (self.isect if tri_packed is None
-                     else Isect(cs, tri_packed))
+                     else Isect(cs, tri_packed, self.traversal))
             weight = o.new_ones(B, 4)
             final = o.new_zeros(B, 4)
             alive = torch.ones(B, dtype=torch.bool, device=o.device)

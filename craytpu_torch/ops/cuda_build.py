@@ -30,7 +30,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "craytpu_torch")
-KERNELS = ("closest_hit", "hitrec")
+KERNELS = ("closest_hit", "hitrec", "dense_hit")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
          "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
@@ -245,8 +245,10 @@ def main(argv=None) -> int:
 
         python -m craytpu_torch.ops.cuda_build [--csrc DIR]
 
-    DIR: another checkout's kernel sources (e.g. an earlier commit's
-    craytpu_torch/csrc), built with these flags."""
+    DIR: another checkout's kernel sources (e.g. a later commit's
+    craytpu_torch/csrc), built with these flags; it must hold every
+    source of KERNELS (an earlier commit with fewer kernels runs its own
+    copy of this module)."""
     import argparse
     global CSRC
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])

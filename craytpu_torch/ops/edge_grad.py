@@ -423,7 +423,8 @@ def make_edge_grad2_fn(cscene, scene, renderer, depth: int,
         into every edge's gradient (0 * NaN in the backward)."""
         o, d, _ = renderer._init_rays(xs_r, ys_r, pass_idx, spp)
         alive = torch.ones(B, dtype=torch.bool, device=dev)
-        is_hit, P, n_w, uv, mat_id, hit_t = Isect(cscene, tri_packed)(
+        is_hit, P, n_w, uv, mat_id, hit_t = Isect(
+            cscene, tri_packed, renderer.traversal)(
             cscene.geom, o, d, alive)
         gid = mat_graph[mat_id.long()]
         dmask = torch.zeros(B, dtype=torch.bool, device=dev)

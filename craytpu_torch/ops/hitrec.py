@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from craytpu_torch.ops import cuda_build
+from craytpu_torch.ops import dense_isect as dx
 from craytpu_torch.ops import intersect as isx
 from craytpu_torch.ops import traverse as trv
 from craytpu_torch.ops import vecmath as vm
@@ -251,14 +252,25 @@ def check_ids(prim, inst, n_prim: int, n_inst: int, where: str) -> None:
             f"{int(inst[i])} of {n_inst} (CRAYTPU_DEBUG)")
 
 
+# CRAYTPU_TRAVERSAL (the JAX package's modes) -> the port's search: K2's
+# BVH walk, which is the JAX package's SIMT walk bit for bit and stands
+# for its Pallas flash search, or K3's dense search
+TRAVERSALS = {"auto": "walk", "simt": "walk", "flash": "walk",
+              "dense": "dense"}
+
+
 class Isect:
-    """Closest hit (K2) then hit-record resolve (K1):
+    """Closest hit (K2, or K3 with traversal="dense") then hit-record
+    resolve (K1):
     isect(geom, o_w, d_w, alive) -> (is_hit, p_w, n_w, uv, mat_id, t).
 
     Each kernel's wrapper picks its plain version for CPU tensors. K2
     reads the scene's KernelLayout, built once per scene at the first
-    launch on the card (a CPU run never builds it). Callers pass detached
-    rays: the discrete search takes no gradient.
+    launch on the card (a CPU run never builds it); K3 reads the scene's
+    DenseLayout (`CompiledScene.dense`), on either device. K1 recomputes
+    each winner's t, u, v exactly, so wherever both searches pick the
+    same winner the records are bit-equal. Callers pass detached rays:
+    the discrete search takes no gradient.
 
     tri_packed: the port of craytpu's make_isect_fn(diff=True), for
     vertex gradients. The search stays on the scene's own geometry (the
@@ -273,8 +285,11 @@ class Isect:
     Under CRAYTPU_DEBUG (read when the Isect is built) both check that
     the winner ids they take are in range (check_ids)."""
 
-    def __init__(self, cscene, tri_packed=None):
+    def __init__(self, cscene, tri_packed=None, traversal: str = "walk"):
+        if traversal not in ("walk", "dense"):
+            raise ValueError(f"traversal={traversal!r}: 'walk' or 'dense'")
         self.cscene = cscene
+        self.traversal = traversal
         self.tri_packed = tri_packed
         self.debug = debug_enabled()
         self.tri_wide = cscene.tri_wide
@@ -287,9 +302,12 @@ class Isect:
         """(t, prim, inst, record) of each ray: the kernels' outputs."""
         cs = self.cscene
         limit = torch.where(alive, FLT_MAX, 0.0)
-        layout = cs.layout if o_w.device.type == "cuda" else None
-        hit = trv.closest_hit(geom, o_w, d_w, limit, cs.tlas_end,
-                              cs.stack_depth, layout)
+        if self.traversal == "dense":
+            hit = dx.dense_hit(geom, o_w, d_w, limit, cs.dense)
+        else:
+            layout = cs.layout if o_w.device.type == "cuda" else None
+            hit = trv.closest_hit(geom, o_w, d_w, limit, cs.tlas_end,
+                                  cs.stack_depth, layout)
         if self.debug:
             check_ids(hit.prim, hit.inst, self.tri_wide.shape[0],
                       cs.inst_wide.shape[0], "closest hit")

@@ -16,8 +16,8 @@ vertex (models/wavefront_pt.py::_step).
 The light pick, the sampled point, the visibility result and all geometry
 factors are detached (they are sampling decisions); gradients flow
 through Le (params.emission) and the albedo color node. The shadow ray
-goes through the step's own isect: K2 then K1, with a limit of 0 on lanes
-that do not shoot. With NEE off nothing here runs and no sampler
+goes through the step's own isect: K2 (or K3) then K1, with a limit of 0
+on lanes that do not shoot. With NEE off nothing here runs and no sampler
 dimension is consumed.
 """
 

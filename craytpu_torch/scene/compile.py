@@ -6,8 +6,9 @@ instances and spheres, builds the global material table, dedups material
 node graphs (the hash-consing analogue), prepares the ShadeParams tables
 and the denormalized hit-record rows (tri_wide, inst_wide) that the
 hit-record kernel gathers from, and the light table next-event
-estimation samples. The closest-hit kernel's own tables
-(`CompiledScene.layout`) are built from the geometry at first use.
+estimation samples. The closest-hit kernels' own tables
+(`CompiledScene.layout`, `CompiledScene.dense`) are built from the
+geometry at first use.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from craytpu_torch.ops import dense_isect as dx
 from craytpu_torch.ops import shading
 from craytpu_torch.ops import traverse as trv
 from craytpu_torch.ops.camera import CameraHost, make_camera_ray_fn
@@ -66,6 +68,13 @@ class CompiledScene:
         """The closest-hit kernel's tables, built from `geom` on the
         scene's device at first use, once per scene."""
         return trv.build_layout(self.geom, self.tlas_end)
+
+    @cached_property
+    def dense(self) -> dx.DenseLayout:
+        """The dense search's tables (CRAYTPU_TRAVERSAL=dense): the
+        (P, 16) coefficient rows, each mesh's row range and the instance
+        order, built from `geom` on the scene's device at first use."""
+        return dx.build_dense(self.geom, self.n_instances)
 
     def bsdf_fns(self, kind: str):
         return [shading.compile_bsdf(g, self.reg, kind) for g in self.graphs]

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from craytpu_torch.ops import cuda_build
+from craytpu_torch.ops import dense_isect as dx
 from craytpu_torch.ops import hitrec as hr
 from craytpu_torch.ops import traverse as trv
 from craytpu_torch.scene.compile import compile_scene
@@ -184,3 +185,58 @@ def test_kernels_refuse_bad_input(scene):
                         scene.stack_depth)
     # every stack depth up to the kernel's is taken
     check_closest_hit(scene, o, d, limit.cpu(), trv.KERNEL_MAX_STACK)
+
+
+def check_dense_hit(cs, o, d, limit):
+    """K3 on the card against its plain version on the CPU, bit for bit;
+    returns the plain result."""
+    want = dx.dense_hit(cs.geom, o, d, limit, cs.dense)
+    geom = cs.geom.to("cuda")
+    got = dx.dense_hit(geom, o.cuda(), d.cuda(), limit.cuda(),
+                       dx.build_dense(geom, cs.n_instances))
+    torch.cuda.synchronize()
+    assert torch.equal(got.inst.cpu(), want.inst)
+    assert torch.equal(got.prim.cpu(), want.prim)
+    assert_bits(got.t, want.t, "t")
+    return want
+
+
+def test_dense_hit_kernel_matches_plain(scene):
+    """Every 7th lane dead, and the whole first block (a block whose lanes
+    are all dead returns at once)."""
+    B = 4096
+    o, d = rays(scene, B, 21)
+    i = torch.arange(B)
+    limit = torch.where((i % 7 == 0) | (i < 256), 0.0, trv.FLT_MAX)
+    n = dx.dense_hit.launches
+    want = check_dense_hit(scene, o, d, limit)
+    assert dx.dense_hit.launches == n + 1
+    assert (want.inst >= 0).any() and (want.prim >= 0).any()
+    assert (want.inst[:256] == -1).all()
+
+
+@pytest.mark.parametrize("B", [0, 1, 255, 257, 4099])
+def test_dense_hit_kernel_ragged_batches(scene, B):
+    o, d = rays(scene, B, 22)
+    limit = torch.where(torch.arange(B) % 5 == 3, 0.0, trv.FLT_MAX)
+    n = dx.dense_hit.launches
+    want = check_dense_hit(scene, o, d, limit)
+    assert want.t.shape == (B,)
+    assert dx.dense_hit.launches == n + (B > 0)
+
+
+def test_dense_hit_kernel_all_dead(scene):
+    o, d = rays(scene, 1000, 23)
+    want = check_dense_hit(scene, o, d, torch.zeros(1000))
+    assert (want.inst == -1).all() and (want.prim == -1).all()
+
+
+def test_dense_hit_kernel_refuses_bad_input(scene):
+    o, d = rays(scene, 64, 2)
+    limit = torch.full((64,), trv.FLT_MAX, device="cuda")
+    geom = scene.geom.to("cuda")
+    dense = dx.build_dense(geom, scene.n_instances)
+    with pytest.raises(ValueError):
+        dx.dense_hit(geom, o.double().cuda(), d.cuda(), limit, dense)
+    with pytest.raises(ValueError):  # the table on the wrong device
+        dx.dense_hit(geom, o.cuda(), d.cuda(), limit, scene.dense)
