@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. build   — nvcc builds the three kernels from craytpu_torch/csrc (in
-               parallel) into build/craytpu_torch/, and prints each
+  1. build   — nvcc builds the three kernels from craytpu_torch/csrc, each
+               in its exact and its fast variant (six nvcc processes in
+               parallel), into build/craytpu_torch/, and prints each
                kernel's registers a thread, stack frame and spill bytes
                (local memory) and static shared memory, as ptxas -v
                reported them, and its static SASS instruction count.
@@ -170,14 +171,31 @@ Phases (any failure exits non-zero and prints no result line):
                a diff_geometry fwd+bwd on tests/test_vertex_grad.py's
                cube under dense against the walk's: image and gradients
                within rtol=2e-4, atol=1e-6.
+  13. switches — CRAYTPU_FASTMATH and what K1 is worth, on persistent
+               1080p frames of stress_highpoly in turns (A, B, B, A).
+               CRAYTPU_FASTMATH (read at import): four child processes,
+               exact, fast, fast, exact, each timing one frame after a
+               warm-up; the first fast one also holds the fast variant
+               of K1, K2 and K3 against its fast plain version on the
+               card at phase 2's shapes (bit-equal, or the phase fails),
+               times them, and prints both stress goldens at 80x50, 4
+               spp (not gated: fast math is not golden-exact). Then K1's
+               records against the plain version's (plain_records swaps
+               the record function for those frames; the port's
+               CRAYTPU_HITREC=xla maps to K1): paths/s and K1's launches
+               (> 0, and 0 with the plain record; counters set to 0 just
+               before, read just after); the frames agree within
+               rtol=2e-5, atol=2e-6.
 Then one line {"kernels": [...]} (launches_sharded: each rank's launches
-in phase 11's 2-rank frame; K3's launches: phase 12's dense frame) and,
-last, the ok line with the device.
+in phase 11's 2-rank frame; K3's launches: phase 12's dense frame;
+ms_fast and plain_ms_fast: the fast variants, phase 13) and, last, the ok
+line with the device.
 Needs one CUDA card; exits 1 without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2586,6 +2604,216 @@ def phase_dense(torch, kernels: dict) -> None:
     print(f"dense: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the runtime switches
+
+def fast_kernel_checks(torch) -> dict:
+    """Each kernel's fast variant (this process runs under
+    CRAYTPU_FASTMATH=1) against its fast plain version on the card, at
+    phase 2's shapes and inputs: bit-equal, or fail. Returns each
+    kernel's {"ms", "plain_ms", "max_abs_err"}."""
+    from craytpu_torch.ops import cuda_build
+    from craytpu_torch.ops import dense_isect as dx
+    from craytpu_torch.ops import hitrec as hr
+    from craytpu_torch.ops import traverse as trv
+    from craytpu_torch.ops import vecmath as vm
+    from craytpu_torch.scene.compile import compile_scene
+    if not vm._FASTMATH:
+        fail("fast kernel checks without CRAYTPU_FASTMATH=1")
+    host = load("stress_highpoly", {"width": W, "height": H})
+    cs_cpu = compile_scene(host, "cpu")
+    cs_dev = compile_scene(host, "cuda")
+    geom, layout = cs_dev.geom, cs_dev.layout
+    rng = np.random.default_rng(20260)          # phase 2's inputs
+    o, d, limit = [x.cuda() for x in mixed_rays(cs_cpu, rng, 1 << 16)]
+    k1_in = [x.cuda() for x in winner_ids(cs_cpu, rng, 1 << 20)]
+    out = {}
+
+    def check(name, kernel, plain, fields):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        got = kernel()
+        a.record()
+        want = plain()
+        b.record()
+        torch.cuda.synchronize()
+        if (name, True) not in cuda_build._LIBS:
+            fail(f"{name}: the fast variant was not loaded")
+        err = 0.0
+        for f in fields:
+            g = getattr(got, f) if f else got
+            w = getattr(want, f) if f else want
+            err = max(err, bit_diff(g, w, f"{name} fast {f or 'record'}"))
+        out[name] = {"ms": cuda_ms(kernel, 5), "plain_ms": a.elapsed_time(b),
+                     "max_abs_err": err}
+
+    args = (cs_dev.tlas_end, cs_dev.stack_depth)
+    check("closest_hit",
+          lambda: trv.closest_hit(geom, o, d, limit, *args, layout),
+          lambda: trv.traverse_plain(geom, o, d, limit, *args),
+          ("inst", "prim", "t"))
+    tw, iw = cs_dev.tri_wide, cs_dev.inst_wide
+    check("hitrec", lambda: hr.hitrec_record(tw, iw, *k1_in, True),
+          lambda: hr.hitrec_plain(tw, iw, *k1_in, True), ("",))
+    check("dense_hit",
+          lambda: dx.dense_hit(geom, o, d, limit, cs_dev.dense),
+          lambda: dx.dense_hit_plain(geom, cs_dev.dense, o, d, limit),
+          ("inst", "prim", "t"))
+    return out
+
+
+def switch_child(checks: bool = False) -> None:
+    """Phase 13's child process: a persistent 1080p frame of
+    stress_highpoly under this process's CRAYTPU_FASTMATH (read when
+    vecmath is imported), one warm-up and one timed. With `checks`, first
+    fast_kernel_checks and both stress goldens at 80x50, 4 spp (printed,
+    not gated: fast math is not golden-exact). Prints one line
+    `switch child: {json}`."""
+    import torch
+    from craytpu_torch.models.wavefront_pt import render
+    from craytpu_torch.ops import vecmath as vm
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.utils import golden
+    from craytpu_torch.utils.torchsetup import setup_torch
+    setup_torch()
+    out = {"fastmath": vm._FASTMATH}
+    if checks:
+        out["kernels"] = fast_kernel_checks(torch)
+        out["golden"] = {}
+        for name in ("stress_highpoly", "stress_instances"):
+            cs = compile_scene(load(name, {"width": 80, "height": 50,
+                                           "samples": 4}))
+            out["golden"][name] = golden.compare(render(cs, spp=4), name,
+                                                 80, 50, 4)
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    ren = make_renderer(cs)
+    frame_persistent(torch, ren)                     # warm-up
+    out["paths_s"] = W * H * SPP / frame_persistent(torch, ren)
+    print("switch child: " + json.dumps(out), flush=True)
+
+
+def run_switch_child(fastmath: bool, checks: bool) -> dict:
+    """switch_child in a new process with CRAYTPU_FASTMATH set or unset;
+    fails if it does."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("CRAYTPU_FASTMATH", None)
+    if fastmath:
+        env["CRAYTPU_FASTMATH"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.switch_child(checks={checks})"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("switch child: ")]
+    if res.returncode != 0 or not lines:
+        fail(f"switch child (CRAYTPU_FASTMATH={int(fastmath)}) exited "
+             f"{res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    out = json.loads(lines[-1][len("switch child: "):])
+    if out["fastmath"] != fastmath:
+        fail(f"switch child: CRAYTPU_FASTMATH={int(fastmath)} not seen")
+    return out
+
+
+@contextlib.contextmanager
+def plain_records():
+    """Within the block the integrator's hit records come from
+    hitrec_plain (the plain version, craytpu's XLA twin) on the card in
+    place of K1: what K1 is worth end to end. Isect calls
+    hitrec.hitrec_record by its module name, so the block swaps that
+    name; the port itself has no route from the card to hitrec_plain."""
+    from craytpu_torch.ops import hitrec as hr
+    k1 = hr.hitrec_record
+    hr.hitrec_record = hr.hitrec_plain
+    try:
+        yield
+    finally:
+        hr.hitrec_record = k1
+
+
+def record_turns(torch, cs, order) -> dict:
+    """Persistent frames of cs (fetch=False, one renderer) with the
+    records from K1 ("kernel") or from the plain version ("plain"), in
+    `order`. The first frame of each counts K1/K2 launches (counters set
+    to 0 just before, read just after) and keeps its frame on the host.
+    Returns {name: {"paths_s": [...], "frame", "k2", "k1"}}."""
+    from craytpu_torch.parallel.pool_shard import make_renderer
+    ren = make_renderer(cs)
+    ren.render_persistent(SPP, fetch=False)                  # warm-up
+    out = {}
+    for name in order:
+        def frame():
+            plain = name == "plain"
+            with plain_records() if plain else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                fb = ren.render_persistent(SPP, fetch=False)
+                torch.cuda.synchronize()
+                return fb, time.perf_counter() - t0
+        if name in out:
+            out[name]["paths_s"].append(W * H * SPP / frame()[1])
+            continue
+        (fb, secs), n_k2, n_k1 = counted(torch, frame)
+        out[name] = {"paths_s": [W * H * SPP / secs], "frame": fb.cpu(),
+                     "k2": n_k2, "k1": n_k1}
+    return out
+
+
+def phase_switches(torch, kernels: dict) -> None:
+    """Phase 13: the runtime switches, on persistent 1080p frames of
+    stress_highpoly, each pair of settings in turns (A, B, B, A)."""
+    from craytpu_torch.scene.compile import compile_scene
+    t_phase = time.perf_counter()
+
+    # ---- CRAYTPU_FASTMATH: read when vecmath is imported, so each frame
+    # is a child process (exact, fast, fast, exact); the first fast one
+    # also holds the fast kernels against their fast plain versions
+    children = [run_switch_child(f, checks=(f and i == 1))
+                for i, f in enumerate((False, True, True, False))]
+    fk = children[1]["kernels"]
+    for name, k in fk.items():
+        kernels[name]["ms_fast"] = k["ms"]
+        kernels[name]["plain_ms_fast"] = k["plain_ms"]
+        print(f"switches fastmath: {name} fast variant bit-equal to its "
+              f"fast plain version; {k['ms']:.4f} ms (exact variant, phase "
+              f"2: {kernels[name]['ms']:.4f} ms; fast/exact "
+              f"{k['ms'] / kernels[name]['ms']:.3f}), plain on card "
+              f"{k['plain_ms']:.2f} ms", flush=True)
+    for name, (ok, within, mean_abs) in children[1]["golden"].items():
+        print(f"switches fastmath golden {name} 80x50 4spp (printed, not "
+              f"gated): within1lsb={within:.5f} mean_abs={mean_abs:.4f} "
+              f"ok={ok}", flush=True)
+    ex = [children[0]["paths_s"], children[3]["paths_s"]]
+    fa = [children[1]["paths_s"], children[2]["paths_s"]]
+    print(f"switches fastmath: persistent frame paths/s exact "
+          f"{ex[0]:.0f} {ex[1]:.0f}, fast {fa[0]:.0f} {fa[1]:.0f} (child "
+          f"processes in turns: exact, fast, fast, exact); fast/exact "
+          f"{np.mean(fa) / np.mean(ex):.3f}", flush=True)
+
+    # ---- what K1 is worth: K1's records against the plain version's on
+    # the card (CRAYTPU_HITREC=xla maps to K1 in the port; plain_records)
+    cs = compile_scene(load("stress_highpoly", {"width": W, "height": H,
+                                                "samples": SPP}))
+    res = record_turns(torch, cs, ["kernel", "plain", "plain", "kernel"])
+    if res["kernel"]["k1"] == 0 or res["plain"]["k1"] != 0:
+        fail(f"switches record: K1 launches kernel {res['kernel']['k1']}, "
+             f"plain {res['plain']['k1']}")
+    ref = res["kernel"]["frame"]
+    ok, err, _ = close(res["plain"]["frame"], ref, 2e-5, 2e-6)
+    if not ok or not bool(torch.isfinite(ref).all()):
+        fail(f"switches record: the plain record's frame differs from "
+             f"K1's (max |d| {err:.3e})")
+    mean = {name: float(np.mean(r["paths_s"])) for name, r in res.items()}
+    print("switches record (persistent frames in turns): " + "; ".join(
+        f"{name}: paths/s {' '.join(f'{x:.0f}' for x in r['paths_s'])} "
+        f"(mean {mean[name]:.0f}); k2 {r['k2']}, k1 {r['k1']}"
+        for name, r in res.items())
+        + f"; plain/kernel {mean['plain'] / mean['kernel']:.3f}", flush=True)
+    print(f"switches: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2602,9 +2830,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     setup_torch()
-    secs = cuda_build.build_all()
-    print(f"build: {secs:.1f} s -> {cuda_build.BUILD_DIR}", flush=True)
-    for line in cuda_build.usage_lines():
+    secs = cuda_build.build_all(variants=(False, True))
+    print(f"build: {secs:.1f} s, exact and fast variants -> "
+          f"{cuda_build.build_dir()}", flush=True)
+    for line in cuda_build.usage_lines() + cuda_build.usage_lines(
+            fast=True):
         print(f"  {line}", flush=True)
     kernels = phase_kernels(torch)
     phase_golden(torch)
@@ -2622,6 +2852,7 @@ def main() -> int:
     phase_tools(torch, pool_calls)
     phase_shard(torch, kernels)
     phase_dense(torch, kernels)
+    phase_switches(torch, kernels)
     # the card again, so that the end of a long log names it
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [kernels["closest_hit"], kernels["hitrec"],

@@ -9,9 +9,19 @@
 // sqrt are IEEE (-prec-div=true -prec-sqrt=true). There is deliberately
 // no __fmaf_rn: the emulated det_fma can double-round in rare cases, and a
 // hardware fma would then differ from the plain version by one ulp.
+//
+// -DCRAYTPU_FASTMATH=1 (cuda_build's fast variant; profiling only, as
+// vecmath's CRAYTPU_FASTMATH): exact_div, exact_sqrt, fma_raw and det_fma
+// fall to IEEE a / b, sqrtf and a * b + c in two roundings
+// (__fadd_rn(__fmul_rn(a, b), c), still no __fmaf_rn), bit-equal to the
+// plain versions under the same flag. Not golden-exact.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#ifndef CRAYTPU_FASTMATH
+#define CRAYTPU_FASTMATH 0
+#endif
 
 namespace detm {
 
@@ -42,27 +52,38 @@ __device__ __forceinline__ void two_prod(float x, float y, float& p,
 
 // correctly rounded a / b, as vecmath.exact_div
 __device__ __forceinline__ float exact_div(float a, float b) {
+#if CRAYTPU_FASTMATH
+  return __fdiv_rn(a, b);
+#else
   float q = __fdiv_rn(a, b);
   float p, e;
   two_prod(q, b, p, e);
   float r = __fsub_rn(__fsub_rn(a, p), e);
   float corr = __fdiv_rn(r, b);
   return finite(corr) ? __fadd_rn(q, corr) : q;
+#endif
 }
 
 // correctly rounded sqrt(x), as vecmath.exact_sqrt
 __device__ __forceinline__ float exact_sqrt(float x) {
+#if CRAYTPU_FASTMATH
+  return __fsqrt_rn(x);
+#else
   float s = __fsqrt_rn(x);
   float p, e;
   two_prod(s, s, p, e);
   float r = __fsub_rn(__fsub_rn(x, p), e);
   float corr = __fdiv_rn(r, __fadd_rn(s, s));
   return finite(corr) ? __fadd_rn(s, corr) : s;
+#endif
 }
 
 // unguarded emulated fma(a, b, c), as vecmath.fma_raw / _fma_pre.
 // Argument order matters: the error terms sum ha*lb before la*hb.
 __device__ __forceinline__ float fma_raw(float a, float b, float c) {
+#if CRAYTPU_FASTMATH
+  return __fadd_rn(__fmul_rn(a, b), c);
+#else
   float ha, la, hb, lb;
   split(a, ha, la);
   split(b, hb, lb);
@@ -75,10 +96,14 @@ __device__ __forceinline__ float fma_raw(float a, float b, float c) {
   float z = __fsub_rn(s, p);
   float t = __fadd_rn(__fsub_rn(p, __fsub_rn(s, z)), __fsub_rn(c, z));
   return __fadd_rn(s, __fadd_rn(t, e));
+#endif
 }
 
 // guarded emulated fma, as vecmath.det_fma
 __device__ __forceinline__ float det_fma(float a, float b, float c) {
+#if CRAYTPU_FASTMATH
+  return __fadd_rn(__fmul_rn(a, b), c);
+#else
   float p, e;
   two_prod(a, b, p, e);
   float s = __fadd_rn(p, c);
@@ -87,6 +112,17 @@ __device__ __forceinline__ float det_fma(float a, float b, float c) {
   float corr = __fadd_rn(t, e);
   return finite(corr) ? __fadd_rn(s, corr)
                       : __fadd_rn(__fmul_rn(a, b), c);
+#endif
+}
+
+// exact_div(x, 1.0f) without the division: x + 0 (a -0 turns +0; the
+// residual is +0), or x itself under fast math (x / 1 == x)
+__device__ __forceinline__ float exact_div_one(float x) {
+#if CRAYTPU_FASTMATH
+  return x;
+#else
+  return __fadd_rn(x, 0.0f);
+#endif
 }
 
 // vecDot as the reference binary rounds it: fma(az,bz, fma(ax,bx, ay*by))

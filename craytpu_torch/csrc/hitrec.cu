@@ -157,8 +157,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   if (is_sph) {
     for (int i = 0; i < 3; ++i) n_sph[i] = exact_div(p_obj[i], sph_len);
   } else if (sphere_uv) {
-    // sph_len is 1 here, and exact_div(x, 1) == x + 0 (a -0 turns +0)
-    for (int i = 0; i < 3; ++i) n_sph[i] = __fadd_rn(p_obj[i], 0.0f);
+    // sph_len is 1 here: exact_div(x, 1) without the division
+    for (int i = 0; i < 3; ++i) n_sph[i] = exact_div_one(p_obj[i]);
   }
 
   // ---- mesh normal / uv: fma(n0, w, fma(n1, u, n2*v)) ----

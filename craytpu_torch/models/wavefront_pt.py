@@ -214,9 +214,13 @@ class WavefrontRenderer:
     DRAIN_DEV_MAX = 262144
 
     # sort="boundary" adds a sort point every this many bounces inside a
-    # compaction segment (the JAX package's CRAYTPU_TRACE_SORT_EVERY
-    # default)
+    # compaction segment (the JAX package's default)
     TRACE_SORT_EVERY = 3
+
+    # the persistent pool refills in quanta of B // POOL_QDIV lanes (the
+    # JAX package's default; a rank of a group refills by a quarter,
+    # ShardedPoolRenderer)
+    POOL_QDIV = 16
 
     def __init__(self, cscene: CompiledScene, kind: str = smp.RANDOM,
                  bounces: int | None = None, tile_rays: int | None = None,
@@ -890,8 +894,9 @@ class WavefrontRenderer:
         else:
             final = torch.zeros((npix, 4), dtype=torch.float32, device=dev)
             queue = GidQueue(ranges=[[0, total]])
-        out = self._run_pool(B, spp, _QueueFeed(queue), final, total,
-                             progress, interrupt, on_frame)
+        out = self._run_pool(B, self.refill_quantum(B), spp,
+                             _QueueFeed(queue), final, total, progress,
+                             interrupt, on_frame)
         if isinstance(out, tuple):
             return out
         # divide by a tensor: on CUDA, tensor / python float multiplies
@@ -902,6 +907,12 @@ class WavefrontRenderer:
     # hooks of the pool loop that a group of ranks overrides
     # (parallel/pool_shard.py): one rank's values are the group's
     n_ranks = 1
+
+    def refill_quantum(self, B: int) -> int:
+        """The refill quantum of a pool of B lanes: B // POOL_QDIV, at
+        least 1 (the JAX package's wavefront_pt.py:1405 and
+        pool_shard.py:534)."""
+        return max(B // self.POOL_QDIV, 1)
 
     def _group_step(self, lagged, interrupt):
         """Once a pool step: (the lagged live count, or None before the
@@ -940,17 +951,16 @@ class WavefrontRenderer:
             return self._prime_dev(n, lo % npix, lo // npix, live, spp)
         return self._host_lanes(lo, n, spp)
 
-    def _run_pool(self, B: int, spp: int, feed, final, total: int,
+    def _run_pool(self, B: int, Q: int, spp: int, feed, final, total: int,
                   progress=None, interrupt=None, on_frame=None):
-        """The persistent loop over a pool of B lanes fed by `feed`
+        """The persistent loop over a pool of B lanes, refilled in quanta
+        of Q lanes (refill_quantum), fed by `feed`
         (_QueueFeed, or a rank's _SplitFeed), summing radiance into
         `final` (npix, 4) in place. Returns `final` with every lane
         flushed, or the interrupted tuple of render_persistent. In a
         group of ranks every decision (refill, shrink, drain, stop) is
         the group's, so all ranks step in lockstep."""
         dev = self.device
-        # refill quantum: a sixteenth of the pool
-        Q = B // 16
         k_env = os.environ.get("CRAYTPU_POOL_K")
         k = int(k_env) if k_env else 1
         force_k = bool(k_env)   # an explicit k also holds in the drain

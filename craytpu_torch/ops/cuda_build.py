@@ -2,12 +2,20 @@
 
 Each kernel source is compiled by nvcc into its own shared library with a
 plain C interface and loaded with ctypes. Libraries go to
-build/craytpu_torch/ at the repository root, named by a hash of the
-sources and flags, and are built at first use; `build_all` starts one
-nvcc per source at once. A failed build raises. nvcc runs with
-`-Xptxas -v`; its log is kept beside the library (`<lib>.log`), and
-`kernel_usage` reads each kernel's registers, stack frame and spills
-from it. Nothing is built when a module is imported: the CPU tests
+build/craytpu_torch/ at the repository root, or to the directory that
+CRAYTPU_CACHE names (the counterpart of the JAX package's compile cache,
+craytpu/utils/jaxsetup.py:54-55), named by a hash of the sources and
+flags, and are built at first use; `build_all` starts one nvcc per
+source and variant at once. A failed build raises.
+
+Every kernel has two variants: exact (the default) and fast
+(-DCRAYTPU_FASTMATH=1, csrc/detmath.cuh's plain fallbacks; profiling
+only). They have distinct names and hashes, and a process loads the
+variant that vecmath's CRAYTPU_FASTMATH flag selects at the launch.
+
+nvcc runs with `-Xptxas -v`; its log is kept beside the library
+(`<lib>.log`), and `kernel_usage` reads each kernel's registers, stack
+frame and spills from it. Nothing is built when a module is imported: the CPU tests
 import every module on a machine that has no nvcc.
 
 Flags: sm_90a (Hopper), and IEEE float arithmetic that the plain
@@ -37,7 +45,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # loaded libraries by kernel name: a launch looks its library up here
 # without hashing the sources again
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
+# the fast variant's extra flag (csrc/detmath.cuh)
+FAST_FLAGS = ["-DCRAYTPU_FASTMATH=1"]
 # kernel name -> [(batch size, (start, end) CUDA events)], while
 # launch_timing() is on
 _TIMING: dict | None = None
@@ -56,28 +66,52 @@ def nvcc(tool: str = "nvcc") -> str:
     return found
 
 
+def fastmath() -> bool:
+    """Whether this process runs the fast variant: vecmath's
+    CRAYTPU_FASTMATH flag, tested at each call as the primitives test
+    it."""
+    from craytpu_torch.ops import vecmath
+    return vecmath._FASTMATH
+
+
+def build_dir() -> str:
+    """Where the libraries go: CRAYTPU_CACHE, else build/craytpu_torch/."""
+    return os.environ.get("CRAYTPU_CACHE") or BUILD_DIR
+
+
+def _flags(fast: bool) -> list[str]:
+    return FLAGS + (FAST_FLAGS if fast else [])
+
+
 def _sources(name: str) -> list[str]:
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     return [os.path.join(CSRC, f"{name}.cu")] + [
         os.path.join(CSRC, h) for h in headers]
 
 
-def lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def lib_path(name: str, fast: bool | None = None) -> str:
+    """The library of kernel `name` in the exact or fast variant (default:
+    this process's, `fastmath()`)."""
+    fast = fastmath() if fast is None else fast
+    h = hashlib.sha256(" ".join(_flags(fast)).encode())
     for src in _sources(name):
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    tag = "_fast" if fast else ""
+    return os.path.join(build_dir(),
+                        f"lib{name}{tag}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for one kernel; None if its library is already built."""
-    out = lib_path(name)
+def _start(name: str, fast: bool):
+    """Start nvcc for one kernel variant; None if its library is already
+    built."""
+    out = lib_path(name, fast)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc()] + FLAGS + ["-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc()] + _flags(fast) + ["-o", tmp,
+                                     os.path.join(CSRC, f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT), tmp, out
 
@@ -86,7 +120,7 @@ def _finish(name: str, job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {os.path.basename(out)} "
                            f"(exit {proc.returncode}):\n"
                            f"{log.decode(errors='replace')}")
     with open(f"{out}.log", "wb") as f:
@@ -94,25 +128,27 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names=KERNELS) -> float:
+def build_all(names=KERNELS, variants=None) -> float:
     """Build every kernel library that is missing, one nvcc per source
-    started together. Returns the wall seconds spent."""
+    and variant (False: exact, True: fast; default: this process's),
+    all started together. Returns the wall seconds spent."""
     t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in names}
-    for n, job in jobs.items():
+    variants = (fastmath(),) if variants is None else variants
+    jobs = {(n, v): _start(n, v) for n in names for v in variants}
+    for (n, _), job in jobs.items():
         if job is not None:
             _finish(n, job)
     return time.perf_counter() - t0
 
 
-def kernel_usage(name: str) -> dict:
+def kernel_usage(name: str, fast: bool = False) -> dict:
     """Per __global__ function of kernel library `name` (built first if
     missing), what ptxas reported: {"registers", "stack_bytes",
     "spill_stores", "spill_loads", "smem_bytes"}, and "sass", the
     number of machine instructions in the built function. Keyed by the
     mangled function name."""
-    build_all((name,))
-    with open(f"{lib_path(name)}.log", errors="replace") as f:
+    build_all((name,), (fast,))
+    with open(f"{lib_path(name, fast)}.log", errors="replace") as f:
         log = f.read()
     usage: dict = {}
     fn = None
@@ -136,7 +172,8 @@ def kernel_usage(name: str) -> dict:
                 registers=int(m.group(1)),
                 smem_bytes=int(smem.group(1)) if smem else 0)
     # static SASS instruction count of each function (cuobjdump -sass)
-    sass = subprocess.run([nvcc("cuobjdump"), "-sass", lib_path(name)],
+    sass = subprocess.run([nvcc("cuobjdump"), "-sass",
+                           lib_path(name, fast)],
                           capture_output=True, text=True)
     fn = None
     for line in sass.stdout.splitlines():
@@ -150,16 +187,17 @@ def kernel_usage(name: str) -> dict:
     return usage
 
 
-def usage_lines(names=KERNELS) -> list[str]:
-    """One line per kernel: registers, stack frame, spills, shared
-    memory, SASS instructions."""
+def usage_lines(names=KERNELS, fast: bool = False) -> list[str]:
+    """One line per kernel of a variant: registers, stack frame, spills,
+    shared memory, SASS instructions."""
     lines = []
+    tag = " (fast)" if fast else ""
     for name in names:
-        for fn, u in kernel_usage(name).items():
+        for fn, u in kernel_usage(name, fast).items():
             if f"{name}_kernel" not in fn:
                 continue
             lines.append(
-                f"ptxas {name}_kernel: {u.get('registers')} registers, "
+                f"ptxas {name}_kernel{tag}: {u.get('registers')} registers, "
                 f"{u.get('stack_bytes')} B stack frame, "
                 f"{u.get('spill_stores')} B spill stores, "
                 f"{u.get('spill_loads')} B spill loads, "
@@ -169,10 +207,13 @@ def usage_lines(names=KERNELS) -> list[str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        build_all((name,))
-        _LIBS[name] = ctypes.CDLL(lib_path(name))
-    return _LIBS[name]
+    """Kernel library `name` in this process's variant, built at first
+    use."""
+    key = (name, fastmath())
+    if key not in _LIBS:
+        build_all((name,), key[1:])
+        _LIBS[key] = ctypes.CDLL(lib_path(name, key[1]))
+    return _LIBS[key]
 
 
 def function(lib: str, symbol: str, signature: str):
@@ -241,7 +282,8 @@ def launch_timing():
 
 
 def main(argv=None) -> int:
-    """Build the kernels and print what ptxas reported for each.
+    """Build both variants of the kernels and print what ptxas reported
+    for each.
 
         python -m craytpu_torch.ops.cuda_build [--csrc DIR]
 
@@ -254,8 +296,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
     ap.add_argument("--csrc", default=CSRC)
     CSRC = os.path.abspath(ap.parse_args(argv).csrc)
-    print(f"build: {build_all():.1f} s, sources {CSRC}", flush=True)
-    for line in usage_lines():
+    print(f"build: {build_all(variants=(False, True)):.1f} s, sources "
+          f"{CSRC}", flush=True)
+    for line in usage_lines() + usage_lines(fast=True):
         print(line, flush=True)
     return 0
 

@@ -23,6 +23,9 @@ outside the kernel, here in torch.
 
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import torch
 
@@ -258,6 +261,29 @@ def check_ids(prim, inst, n_prim: int, n_inst: int, where: str) -> None:
 TRAVERSALS = {"auto": "walk", "simt": "walk", "flash": "walk",
               "dense": "dense"}
 
+# CRAYTPU_HITREC (the JAX package's switch, craytpu/ops/hitrec.py:197-201):
+# "kernel" (the default) or "xla". Both take the records from K1's wrapper:
+# craytpu's XLA twin is the wrapper's plain version, which serves CPU
+# tensors only, so on the card "xla" maps to K1 as "flash" maps to the walk
+HITRECS = ("kernel", "xla")
+# set once this process has printed its notice of CRAYTPU_HITREC=xla
+_XLA_NOTICE = []
+
+
+def hitrec_switch() -> str:
+    """Read CRAYTPU_HITREC. Raises on a value not in HITRECS; prints one
+    notice to stderr a process under "xla"."""
+    mode = os.environ.get("CRAYTPU_HITREC", "kernel")
+    if mode not in HITRECS:
+        raise ValueError(f"CRAYTPU_HITREC={mode!r}: one of "
+                         f"{', '.join(HITRECS)}")
+    if mode == "xla" and not _XLA_NOTICE:
+        _XLA_NOTICE.append(mode)
+        print("craytpu_torch: CRAYTPU_HITREC=xla: the port's hit records "
+              "come from K1 on the card (its plain version, craytpu's XLA "
+              "twin, serves CPU tensors)", file=sys.stderr, flush=True)
+    return mode
+
 
 class Isect:
     """Closest hit (K2, or K3 with traversal="dense") then hit-record
@@ -283,7 +309,8 @@ class Isect:
     them again without launching either kernel.
 
     Under CRAYTPU_DEBUG (read when the Isect is built) both check that
-    the winner ids they take are in range (check_ids)."""
+    the winner ids they take are in range (check_ids). CRAYTPU_HITREC
+    is checked when the Isect is built (hitrec_switch)."""
 
     def __init__(self, cscene, tri_packed=None, traversal: str = "walk"):
         if traversal not in ("walk", "dense"):
@@ -292,6 +319,7 @@ class Isect:
         self.traversal = traversal
         self.tri_packed = tri_packed
         self.debug = debug_enabled()
+        hitrec_switch()
         self.tri_wide = cscene.tri_wide
         if tri_packed is not None:
             self.tri_wide = torch.cat([tri_packed.detach(),

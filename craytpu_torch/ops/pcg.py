@@ -147,6 +147,13 @@ def wrap_add(u, v):
     return torch.where(s < 1.0, s, s - 1.0)
 
 
+def radical_inverse(pass_idx, base: int):
+    """PBRT radical inverse in a static base (samplers/common.h:34-46):
+    the JAX package's radical_inverse (craytpu/ops/pcg.py:149-167), per
+    lane of an int32 pass_idx tensor, clamped below 1 at 0.99999994."""
+    return radical_inverse_dyn(pass_idx, torch.full_like(pass_idx, base))
+
+
 def radical_inverse_dyn(pass_idx, base):
     """PBRT radical inverse with a per-lane base. The digit loop runs
     until EVERY lane's digits are exhausted; finished lanes hold their

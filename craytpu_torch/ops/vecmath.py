@@ -15,9 +15,19 @@ same op sequence gives the same bits as the JAX package's forms. Never
 use `@`, einsum, addcmul, addmm or lerp for geometry: they may contract
 or reorder. The CUDA kernels (csrc/detmath.cuh) repeat these sequences
 with __fmul_rn/__fadd_rn/__fsub_rn.
+
+CRAYTPU_FASTMATH=1 (profiling only, as in the JAX package,
+craytpu/ops/vecmath.py:43-48): every deterministic primitive falls to its
+plain form (a / b, sqrt(x), a * b + c in two roundings), so that the
+price of the exact layer can be measured; the kernels are then built
+with the same fallbacks (csrc/detmath.cuh, cuda_build's fast variant).
+Its images are NOT golden-exact. The flag is read once, at import, into
+`_FASTMATH`, which the primitives test at call time.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -28,6 +38,9 @@ PI = float(np.float32(3.14159265358979323846))  # includes.h PI (f32)
 TWO_PI = float(np.float32(2.0) * np.float32(PI))
 
 _SPLIT = 4097.0  # 2^12 + 1: Dekker split point for f32 (24-bit).
+
+# CRAYTPU_FASTMATH=1: the plain forms (module docstring)
+_FASTMATH = os.environ.get("CRAYTPU_FASTMATH", "") == "1"
 
 
 def _two_prod(x, y):
@@ -45,6 +58,8 @@ def _two_prod(x, y):
 
 
 def _exact_div(a, b):
+    if _FASTMATH:
+        return a / b
     q = a / b
     p, e = _two_prod(q, b)
     r = (a - p) - e
@@ -52,7 +67,19 @@ def _exact_div(a, b):
     return torch.where(torch.isfinite(corr), q + corr, q)
 
 
+def _ieee_sqrt(x):
+    """sqrt(x) correctly rounded, as IEEE's and the kernels' __fsqrt_rn:
+    torch.sqrt on the card. PyTorch's vectorised float sqrt on the CPU
+    can be 1 ulp off, so there it goes through float64, whose correctly
+    rounded root rounds to the correctly rounded float one."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
 def _exact_sqrt(x):
+    if _FASTMATH:
+        return _ieee_sqrt(x)
     s = torch.sqrt(x)
     p, e = _two_prod(s, s)
     r = (x - p) - e
@@ -70,6 +97,8 @@ def _split(x):
 def _fma_pre(a, ha, la, b, hb, lb, c):
     """fma(a, b, c) with the operands' splits precomputed. UNGUARDED:
     callers must have scene-scale (finite, |x| < ~8e34) operands."""
+    if _FASTMATH:
+        return a * b + c
     p = a * b
     e = ((ha * hb - p) + ha * lb + la * hb) + lb * la
     s = p + c
@@ -85,6 +114,8 @@ def _fma_raw(a, b, c):
 
 
 def _det_fma(a, b, c):
+    if _FASTMATH:
+        return a * b + c
     p, e = _two_prod(a, b)
     s = p + c
     z = s - p
@@ -172,7 +203,8 @@ def exact_div(a, b):
     r = a - q*b computed exactly via _two_prod, then q + r/b. Falls back
     to the raw q when the correction is non-finite (b == 0, infs, or
     Dekker-split overflow at |x| > ~8e34). NaN lanes stay NaN.
-    Derivative: (g/b, -g*q/b)."""
+    Derivative: (g/b, -g*q/b). Under CRAYTPU_FASTMATH=1 (profiling
+    only, not golden-exact): a / b."""
     if _wants_grad(a, b):
         return _ExactDiv.apply(*_tensors(a, b))
     return _exact_div(a, b)
@@ -181,7 +213,8 @@ def exact_div(a, b):
 def exact_sqrt(x):
     """Correctly-rounded f32 sqrt: s = sqrt(x), r = x - s*s exact, then
     s + r/(2s). s==0 / inf / NaN fall back to the plain result.
-    Derivative: g/(s+s)."""
+    Derivative: g/(s+s). Under CRAYTPU_FASTMATH=1 (profiling only, not
+    golden-exact): sqrt(x)."""
     if _wants_grad(x):
         return _ExactSqrt.apply(x)
     return _exact_sqrt(x)
@@ -189,7 +222,8 @@ def exact_sqrt(x):
 
 def fma_raw(a, b, c):
     """Unguarded det_fma for bounded intermediates (see _fma_pre).
-    Derivative: (g*b, a*g, g)."""
+    Derivative: (g*b, a*g, g). Under CRAYTPU_FASTMATH=1 (profiling
+    only, not golden-exact): a * b + c, two roundings."""
     if _wants_grad(a, b, c):
         return _Fma.apply(*_tensors(a, b, c), False)
     return _fma_raw(a, b, c)
@@ -201,7 +235,8 @@ def det_fma(a, b, c):
     round in rare boundary cases, exactly as in the JAX package, so the
     CUDA kernels must not replace it with a hardware fma.) Non-finite
     corrections fall back to the plain two-rounding chain.
-    Derivative: (g*b, a*g, g)."""
+    Derivative: (g*b, a*g, g). Under CRAYTPU_FASTMATH=1 (profiling
+    only, not golden-exact): a * b + c, two roundings."""
     if _wants_grad(a, b, c):
         return _Fma.apply(*_tensors(a, b, c), True)
     return _det_fma(a, b, c)

@@ -53,7 +53,11 @@ class ShardedPoolRenderer(WavefrontRenderer):
     render_ids run over every rank of the process group, one pool per
     rank. `tile_rays` is the pool size of a rank. Every rank makes the
     same calls with the same arguments (the interrupt callable is polled
-    on rank 0 only; pass one on every rank or on none)."""
+    on rank 0 only; pass one on every rank or on none). A rank's pool
+    refills in quanta of a quarter of it, as the JAX package's
+    (pool_shard.py:534)."""
+
+    POOL_QDIV = 4
 
     def __init__(self, cscene, kind: str = smp.RANDOM,
                  bounces: int | None = None, tile_rays: int | None = None,
@@ -130,8 +134,8 @@ class ShardedPoolRenderer(WavefrontRenderer):
         else:
             P = (spp + self.D - 1) // self.D
             feed = _SplitFeed(self.rank * P * npix, P * npix, total, self.D)
-        out = self._run_pool(B, spp, feed, final, total, progress,
-                             interrupt, on_frame)
+        out = self._run_pool(B, self.refill_quantum(B), spp, feed, final,
+                             total, progress, interrupt, on_frame)
         if isinstance(out, tuple):
             return out
         dist.all_reduce_sum_(out)
@@ -152,7 +156,8 @@ class ShardedPoolRenderer(WavefrontRenderer):
         final = accum.new_zeros(npix, 4)
         feed = _SplitFeed(pass_idx * npix + self.rank * n, n,
                           (pass_idx + 1) * npix, self.D)
-        out = self._run_pool(B, spp, feed, final, npix)
+        out = self._run_pool(B, self.refill_quantum(B), spp, feed, final,
+                             npix)
         sample = dist.all_reduce_sum_(out).reshape(H, W, 4)
         k = accum.new_tensor(float(pass_idx + 1))
         return (accum * (k - 1.0) + sample) / k
@@ -173,9 +178,9 @@ class ShardedPoolRenderer(WavefrontRenderer):
         final = torch.zeros((npix, 4), dtype=torch.float32,
                             device=self.device)
         # host-built lanes: a tile's queue is one short range a pass
-        out = self._run_pool(B, spp, _QueueFeed(queue, self.rank, self.D,
-                                                dev_ranges=False),
-                             final, n)
+        out = self._run_pool(B, self.refill_quantum(B), spp,
+                             _QueueFeed(queue, self.rank, self.D,
+                                        dev_ranges=False), final, n)
         return dist.all_reduce_sum_(out).cpu().numpy()
 
 

@@ -19,9 +19,28 @@ from craytpu_torch.io.png import read_png_rgb
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+# the full corpus with 80x50/4spp goldens (9 reference scenes + 2
+# synthetic stress scenes with C-oracle goldens)
+SCENES = ["scene", "hdr", "refraction", "glowmetal", "uvsphere",
+          "alphanode", "fence", "venus", "statues",
+          "stress_highpoly", "stress_instances"]
+
 # minimum fraction of subpixels within 1 8-bit LSB of the oracle
 MIN_WITHIN_1LSB = 0.985
 MAX_MEAN_ABS = 1.0
+
+
+def scene_path(name: str, corpus: str | None = None) -> str:
+    """A corpus scene's JSON: the stress scenes from assets/, the others
+    from `corpus`, the directory of the C reference's input scenes, which
+    the caller names (the repository does not hold them)."""
+    if name.startswith("stress_"):
+        return os.path.join(REPO, "assets", f"{name}.json")
+    if corpus is None:
+        raise FileNotFoundError(
+            f"{name}: not a stress scene under assets/; pass the C "
+            f"reference's input directory as `corpus`")
+    return os.path.join(corpus, f"{name}.json")
 
 
 def srgb_u8(fb: np.ndarray) -> np.ndarray:
@@ -55,3 +74,18 @@ def compare(fb: np.ndarray, name: str, w: int = 80, h: int = 50,
     if not os.path.exists(path):
         return None, 0.0, 0.0
     return compare_u8(srgb_u8(np.asarray(fb)), read_png_rgb(path))
+
+
+def render_and_compare(name: str, w: int = 80, h: int = 50, spp: int = 4,
+                       device=None, corpus: str | None = None):
+    """Render one corpus scene with the port's per-pass WavefrontRenderer
+    on `device` (the card unless the caller asks for the CPU) and compare
+    it with its golden: (ok, within_1lsb_fraction, mean_abs), as
+    compare. `corpus`: as scene_path."""
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    from craytpu_torch.scene.compile import compile_scene
+    from craytpu_torch.scene.sceneloader import load_scene_from_file
+    scene = load_scene_from_file(
+        scene_path(name, corpus), {"width": w, "height": h, "samples": spp})
+    fb = WavefrontRenderer(compile_scene(scene, device)).render(spp=spp)
+    return compare(fb, name, w, h, spp)

@@ -16,6 +16,7 @@ from craytpu_torch.ops import cuda_build
 from craytpu_torch.ops import dense_isect as dx
 from craytpu_torch.ops import hitrec as hr
 from craytpu_torch.ops import traverse as trv
+from craytpu_torch.ops import vecmath as vm
 from craytpu_torch.scene.compile import compile_scene
 from craytpu_torch.scene.device import INST_SPHERE
 from craytpu_torch.scene.sceneloader import load_scene_from_file
@@ -240,3 +241,46 @@ def test_dense_hit_kernel_refuses_bad_input(scene):
         dx.dense_hit(geom, o.double().cuda(), d.cuda(), limit, dense)
     with pytest.raises(ValueError):  # the table on the wrong device
         dx.dense_hit(geom, o.cuda(), d.cuda(), limit, scene.dense)
+
+
+@pytest.mark.parametrize("kernel", ["closest_hit", "hitrec", "dense_hit"])
+def test_fast_variant_matches_fast_plain(scene, kernel, monkeypatch):
+    """Under CRAYTPU_FASTMATH each wrapper loads its kernel's fast
+    variant (-DCRAYTPU_FASTMATH=1, a library of its own), bit-equal to
+    the plain version under the same flag. Both run on the card: on the
+    CPU, PyTorch's float sqrt can be 1 ulp off the IEEE root."""
+    monkeypatch.setattr(vm, "_FASTMATH", True)
+    B = 4096
+    o, d = rays(scene, B, 31)
+    o, d = o.cuda(), d.cuda()
+    geom = scene.geom.to("cuda")
+    limit = torch.where(torch.arange(B, device="cuda") % 7 == 0, 0.0,
+                        trv.FLT_MAX)
+    if kernel == "closest_hit":
+        args = (scene.tlas_end, scene.stack_depth)
+        got = trv.closest_hit(geom, o, d, limit, *args,
+                              trv.build_layout(geom, scene.tlas_end))
+        want = trv.traverse_plain(geom, o, d, limit, *args)
+    elif kernel == "dense_hit":
+        dense = dx.build_dense(geom, scene.n_instances)
+        got = dx.dense_hit(geom, o, d, limit, dense)
+        want = dx.dense_hit_plain(geom, dense, o, d, limit)
+    else:
+        rng = np.random.default_rng(32)
+        P, I = scene.tri_wide.shape[0], scene.inst_wide.shape[0]
+        ids = (torch.from_numpy(rng.uniform(0, 20, B).astype(np.float32)),
+               torch.from_numpy(rng.integers(-1, P, B, dtype=np.int32)),
+               torch.from_numpy(rng.integers(-1, I, B, dtype=np.int32)))
+        tw, iw = scene.tri_wide.cuda(), scene.inst_wide.cuda()
+        args = (o, d) + tuple(x.cuda() for x in ids)
+        got = hr.hitrec_record(tw, iw, *args, True)
+        want = hr.hitrec_plain(tw, iw, *args, True)
+    torch.cuda.synchronize()
+    assert (kernel, True) in cuda_build._LIBS
+    if kernel == "hitrec":
+        assert_bits(got, want, "record")
+        return
+    assert (want.inst >= 0).any()
+    assert torch.equal(got.inst, want.inst)
+    assert torch.equal(got.prim, want.prim)
+    assert_bits(got.t, want.t, "t")
