@@ -20,7 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
                1080p frame's first 2^20-lane primary batch, timed whole
                and checked on every 16th lane (rays are independent).
                K3 (dense closest hit): K2's 2^16 rays, against its plain
-               version on the card (on the CPU it would take minutes).
+               version on the card (on the CPU it would take minutes),
+               with its cull's counters from the plain cull model
+               (dense_cull_counts) and two bounds: the culled search's
+               (the row's) and the full search's.
   3. golden  — stress_highpoly and stress_instances at 80x50, 4 spp,
                through the kernels, against goldens/*_80_4.png at the
                thresholds of craytpu_torch/utils/golden.py.
@@ -154,8 +157,10 @@ Phases (any failure exits non-zero and prints no result line):
                primary batch K3's winners against K2's: hit/miss
                identical, (inst, prim) equal on >= 0.999 of the lanes, K1
                records bit-equal where they are; K3's time there; K3
-               bit-equal to its plain version on every 16th lane of that
-               launch and on a 16,384-lane launch of those lanes. Both
+               bit-equal to its plain version on every lane of that
+               launch and on a 16,384-lane launch of its first lanes;
+               the cull's counters and both bounds on every 16th block
+               of 256 lanes, scaled by 16. Both
                stress goldens at 80x50, 4 spp, per pass (render) and
                persistent (make_renderer), K3 launched and K2 not. A
                1-spp persistent 1080p frame picks the largest spp of {4,
@@ -219,14 +224,18 @@ K1_OPS_LANE = 1851
 K1_BYTES_LANE = (7 + 2 + 16) * 4
 K1_BYTES_TRI_ROW, K1_BYTES_INST_ROW = 32 * 4, 28 * 4
 # The dense search's f32 operations, counted from csrc/dense_hit.cu
-# (compares not counted), none fused, so they run at the card's f32 lane
-# rate: half the 67 TFLOP/s peak, which counts an fma as two operations.
-# Every live (ray, triangle) pair needs det (5), t*det (6), 1/det and t:
-# K3_OPS_T. Only a pair whose t passes 0 <= t <= the ray's final best
-# needs u*det and v*det (11 each), u, v and u + v to be decided:
-# K3_OPS_UV more (K3 as written spends both on every pair). A sphere
-# instance costs a K2 sphere test.
-K3_OPS_T, K3_OPS_UV = 13, 25
+# (compares and selects not counted), none fused, so they run at the
+# card's f32 lane rate: half the 67 TFLOP/s peak, which counts an fma as
+# two operations. A (ray, triangle) pair needs det (5), t*det (6), 1/det
+# and t to be rejected on its t: K3_OPS_T. Only a pair whose t passes 0
+# <= t <= the ray's final best needs u*det and v*det (11 each), u, v and
+# u + v to be decided: K3_OPS_UV more. A box test (box_keep) costs
+# K3_OPS_BOX. A sphere instance costs a K2 sphere test. The full search's
+# bound counts every live pair (K3 before its cull); the culled bound
+# counts the box tests a lane makes (its root box, every superblock box
+# of an instance whose root it keeps, the group boxes of the superblocks
+# it votes for) and the pairs of the groups it votes for.
+K3_OPS_T, K3_OPS_UV, K3_OPS_BOX = 13, 25, 31
 F32_LANE_OPS_PER_S = F32_OPS_PER_S / 2
 # the main path's frame
 W, H, SPP = 1920, 1080, 4
@@ -506,52 +515,133 @@ def phase_kernels(torch) -> dict:
     return out
 
 
-def dense_uv_pairs(torch, geom, dense, o_w, d_w, limit, best_t) -> int:
-    """Live (ray, triangle) pairs whose t, as dense_hit_plain computes it,
-    passes 0 <= t <= best_t, the ray's final best (its hit's t, or its
-    limit on a miss). In any order of the triangles these pairs need u
-    and v; every other pair is rejected on its t alone."""
+def dense_cull_counts(torch, geom, dense, o, d, limit) -> dict:
+    """K3's work on rays (o, d, limit) under its cull, from the plain cull
+    model (dense_isect.dense_cull_plain) on the same tensors, at the
+    kernel's lanes: ray r is lane r % 256 of block r // 256, warp r //
+    32. Lane-level: root tests and votes; superblock tests (every
+    superblock of an instance whose root the lane keeps) and votes; group
+    tests (the groups of the superblocks it votes for) and votes; the
+    pairs of the groups it votes for ("pairs_lane"). As the kernel runs
+    them: superblocks its blocks load ("blocks_loaded", of "block_slots"
+    a block could) and groups its warps run ("groups_run", of
+    "group_slots", the groups of the superblocks their blocks load), and
+    the pairs those warps evaluate ("pairs_run", a pair a lane).
+    "pairs_all": every live pair; "uv_all": the live pairs whose t, as
+    the pair test computes it, passes 0 <= t <= the ray's final best (the
+    pairs that need u and v in any order of the triangles), "uv_lane"
+    those of them in the groups their lanes vote for."""
     from craytpu_torch.ops import dense_isect as dx
     from craytpu_torch.ops import traverse as trv
-    from craytpu_torch.scene.device import INST_SPHERE
-    live = limit > 0
-    o_w, d_w, best = o_w[live], d_w[live], best_t[live][:, None]
-    B = o_w.shape[0]
-    chunk = max(dx.PLAIN_CHUNK_ELEMS // max(B, 1) // dx.TRI_BLOCK,
-                1) * dx.TRI_BLOCK
-    total = torch.zeros((), dtype=torch.int64, device=o_w.device)
-    for i, (kind, first, n, _) in enumerate(dense.plan.tolist()):
-        if kind == INST_SPHERE or n == 0:
-            continue
-        o, d = trv.object_ray(geom.inst_Ainv[i], geom.inst_offset[i], o_w,
-                              d_w)
-        for c in range(0, n, chunk):
-            r = dense.table[first + c:first + min(c + chunk, n)]
-            det = d[:, 0:1] * r[:, 0] + d[:, 1:2] * r[:, 1] \
-                + d[:, 2:3] * r[:, 2]
-            td = o[:, 0:1] * -r[:, 0] + o[:, 1:2] * -r[:, 1] \
-                + o[:, 2:3] * -r[:, 2] + r[:, 15]
-            t = td * (torch.ones_like(det) / det)
-            total += ((t >= 0.0) & (t <= best)).sum()
-    return int(total)
+    hit, culls = dx.dense_cull_plain(geom, dense, o, d, limit)
+    B = o.shape[0]
+    dev = o.device
+    keys = ("root_tests", "root_kept", "block_tests", "block_votes",
+            "blocks_loaded", "block_slots", "group_tests", "group_votes",
+            "groups_run", "group_slots", "pairs_lane", "pairs_run",
+            "pairs_all", "uv_all", "uv_lane")
+    z = dict.fromkeys(keys, 0)
+    live_lane = limit > 0
+    z["live"] = live = int(live_lane.sum())
+    plan = dense.plan.tolist()
+    warp_lanes = torch.full(((B + 31) // 32,), 32, device=dev)
+    warp_lanes[-1] = B - 32 * (warp_lanes.shape[0] - 1)
+
+    def fold(x, k):  # (B, ...) bool -> (ceil(B / k), ...) any over k lanes
+        pad = -B % k
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        return x.view(-1, k, *x.shape[1:]).any(dim=1)
+    for c in culls:
+        n = plan[c["inst"]][2]
+        root, block, group = c["root"], c["block"], c["group"]
+        ng, nb = group.shape[1], block.shape[1]
+        rows = torch.full((ng,), dx.GROUP, device=dev)
+        rows[-1] = n - dx.GROUP * (ng - 1)
+        sb = torch.arange(ng, device=dev) // dx.SUPER
+        sb_groups = torch.bincount(sb, minlength=nb)
+        root_blk = fold(root[:, None], 256)[:, 0]
+        loaded = fold(block, 256) & root_blk[:, None]
+        lane_loaded = loaded.repeat_interleave(256, dim=0)[:B]
+        warp_run = fold(group & lane_loaded[:, sb], 32)
+        z["root_tests"] += live
+        z["root_kept"] += int(root.sum())
+        z["block_tests"] += int(root.sum()) * nb
+        z["block_votes"] += int(block.sum())
+        z["blocks_loaded"] += int(loaded.sum())
+        z["block_slots"] += int(root_blk.sum()) * nb
+        z["group_tests"] += int((block.sum(0) * sb_groups).sum())
+        z["group_votes"] += int(group.sum())
+        z["groups_run"] += int(warp_run.sum())
+        z["group_slots"] += int((loaded.sum(0) * sb_groups).sum()) * 8
+        z["pairs_lane"] += int((group.sum(0) * rows).sum())
+        z["pairs_run"] += int(((warp_run * rows).sum(1) * warp_lanes).sum())
+        z["pairs_all"] += live * n
+        # the pairs whose t passes 0 <= t <= the final best, all of them
+        # and those of the voted groups
+        first = plan[c["inst"]][1]
+        oi, di = trv.object_ray(geom.inst_Ainv[c["inst"]],
+                                geom.inst_offset[c["inst"]], o, d)
+        wi = torch.linalg.cross(di, oi)  # only t is read
+        step = max(dx.PLAIN_CHUNK_ELEMS // B // dx.TILE, 1) * dx.TILE
+        for k in range(0, n, step):
+            t, _ = dx.pair_tests(
+                dense.leaf_table[first + k:first + min(k + step, n)], oi, di,
+                wi)
+            ok = (t >= 0.0) & (t <= hit.t[:, None]) & live_lane[:, None]
+            z["uv_all"] += int(ok.sum())
+            ok = torch.cat([ok, ok.new_zeros((B, -ok.shape[1] % dx.GROUP))],
+                           1).view(B, -1, dx.GROUP).sum(2)
+            g = group[:, k // dx.GROUP:k // dx.GROUP + ok.shape[1]]
+            z["uv_lane"] += int((ok * g).sum())
+    return z
 
 
-def dense_bound(dense, live: int, B: int, uv_pairs: int) -> tuple:
-    """K3's bound for B rays of which `live` are live and `uv_pairs` live
-    pairs need u and v (dense_uv_pairs): (bound ms, what bounds it, live
-    ray-triangle pairs). Operations: K3_OPS_T a live pair, K3_OPS_UV more
-    a u, v pair and a K2 sphere test a live ray and sphere instance, at
-    the f32 lane rate; bytes: each ray's 7 input and 3 output words, the
-    table and the plan once."""
+def fmt_cull(z: dict) -> str:
+    def share(a, b):
+        return f"{100 * z[a] / max(z[b], 1):.3f}%"
+    return (f"{z['live']} live lanes; root kept {share('root_kept', 'root_tests')}"
+            f"; superblock votes {share('block_votes', 'block_tests')} of "
+            f"the lanes' tests, blocks load {share('blocks_loaded', 'block_slots')}"
+            f"; group votes {share('group_votes', 'group_tests')} of the "
+            f"lanes' tests, warps run {share('groups_run', 'group_slots')}; "
+            f"pairs tested {z['pairs_lane']:.4e} "
+            f"({share('pairs_lane', 'pairs_all')} of {z['pairs_all']:.4e}), "
+            f"evaluated by the warps {z['pairs_run']:.4e} "
+            f"({share('pairs_run', 'pairs_all')}); box tests "
+            f"{z['root_tests'] + z['block_tests'] + z['group_tests']:.4e}")
+
+
+def dense_bound(dense, live: int, B: int, cull: dict,
+                culled: bool) -> tuple:
+    """K3's bound for B rays of which `live` are live, from the counts
+    `cull` of dense_cull_counts: (bound ms, what bounds it, live
+    ray-triangle pairs). Operations: the full search's (K3_OPS_T every
+    live pair, K3_OPS_UV each that needs u and v, "uv_all"), or if
+    `culled` the culled search's (K3_OPS_BOX a box test,
+    K3_OPS_T a pair of the groups the lanes vote for and K3_OPS_UV each
+    of those whose t passes, "uv_lane"); both a K2 sphere test a live ray
+    and sphere instance, at the f32 lane rate; bytes: each ray's 7 input
+    and 3 output words, the table and the plan once (and with `cull` the
+    row ids and the boxes)."""
     from craytpu_torch.scene.device import INST_SPHERE
     plan = dense.plan.tolist()
     tris = sum(n for k, _, n, _ in plan if k != INST_SPHERE)
     sph = sum(1 for k, _, _, _ in plan if k == INST_SPHERE)
     pairs = live * tris
-    ops = (pairs * K3_OPS_T + uv_pairs * K3_OPS_UV
-           + live * sph * K2_OPS_SPHERE)
-    nbytes = (B * (7 + 3) * 4 + dense.table.numel() * 4
+    nbytes = (B * (7 + 3) * 4 + dense.leaf_table.numel() * 4
               + dense.plan.numel() * 4)
+    uv_pairs = cull["uv_all"]
+    if not culled:
+        ops = pairs * K3_OPS_T
+    else:
+        ops = (K3_OPS_BOX * (cull["root_tests"] + cull["block_tests"]
+                             + cull["group_tests"])
+               + K3_OPS_T * cull["pairs_lane"])
+        uv_pairs = cull["uv_lane"]
+        nbytes += 4 * (dense.leaf_ids.numel() + dense.root_box.numel()
+                       + dense.block_box.numel() + dense.group_box.numel())
+    ops += uv_pairs * K3_OPS_UV + live * sph * K2_OPS_SPHERE
     t_ops = ops / F32_LANE_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -560,7 +650,9 @@ def dense_bound(dense, live: int, B: int, uv_pairs: int) -> tuple:
 
 def check_dense_kernel(torch, geom, dense, o, d, limit) -> dict:
     """K3 on CUDA rays (o, d, limit) bit-equal to its plain version on the
-    same tensors, timed; its line of the kernels record (launches 0)."""
+    same tensors, timed; the cull counters; its line of the kernels
+    record (launches 0; bound_ms the culled search's; the full search's
+    bound is printed)."""
     from craytpu_torch.ops import dense_isect as dx
     B = o.shape[0]
     got = dx.dense_hit(geom, o, d, limit, dense)
@@ -576,14 +668,18 @@ def check_dense_kernel(torch, geom, dense, o, d, limit) -> dict:
     err = bit_diff(got.t, want.t, "K3 t")
     ms = cuda_ms(lambda: dx.dense_hit(geom, o, d, limit, dense), 5)
     live = int((limit > 0).sum())
-    uv = dense_uv_pairs(torch, geom, dense, o, d, limit, want.t)
-    bound, by, pairs = dense_bound(dense, live, B, uv)
+    cull = dense_cull_counts(torch, geom, dense, o, d, limit)
+    uv = cull["uv_all"]
+    full, _, pairs = dense_bound(dense, live, B, cull, False)
+    bound, by, _ = dense_bound(dense, live, B, cull, True)
     print(f"K3 dense_hit: B={B} ({live} live) bit-equal to the plain "
           f"version; {pairs:.3e} live ray-triangle pairs, {uv:.3e} of them "
-          f"need u and v; kernel "
-          f"{ms:.3f} ms, plain on card {plain_ms:.1f} ms, bound "
-          f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of it); "
+          f"need u and v; kernel {ms:.4f} ms, plain on card "
+          f"{plain_ms:.1f} ms; bound of the culled search {bound:.4f} ms "
+          f"({by}, {100 * bound / ms:.1f}% of it), of the full search "
+          f"{full:.3f} ms ({100 * full / ms:.1f}%); "
           f"{int((want.inst >= 0).sum())} hits", flush=True)
+    print(f"K3 cull at B={B}: {fmt_cull(cull)}", flush=True)
     return dict(name="dense_hit", ok=True, route="cuda",
                 source="craytpu_torch/csrc/dense_hit.cu",
                 replaces="craytpu/ops/dense_isect.py:120", launches=0,
@@ -2435,45 +2531,56 @@ def phase_dense(torch, kernels: dict) -> None:
                          cs.stack_depth, cs.layout)
     k3 = dx.dense_hit(cs.geom, o_b, d_b, lim_b, cs.dense)
     ms_b = cuda_ms(lambda: dx.dense_hit(cs.geom, o_b, d_b, lim_b, cs.dense),
-                   2)
+                   3)
     # ---- K3 against its plain version at the frame's batch sizes: every
-    # 16th lane of this 2^20-lane launch, and a 16,384-lane launch (the
-    # frame's small batches) on the first of those lanes
-    sub = torch.arange(0, T, 16, device=o_b.device)
-    o_s, d_s, lim_s = o_b[sub], d_b[sub], lim_b[sub]
-    want = dx.dense_hit_plain(cs.geom, cs.dense, o_s, d_s, lim_s)
+    # lane of this 2^20-lane launch, and a 16,384-lane launch (the frame's
+    # small batches) of its first lanes
+    t0 = time.perf_counter()
+    want = dx.dense_hit_plain(cs.geom, cs.dense, o_b, d_b, lim_b)
     for field in ("inst", "prim", "t"):
-        bit_diff(getattr(k3, field)[sub], getattr(want, field),
-                 f"K3 {field} at every 16th lane of 2^20")
+        bit_diff(getattr(k3, field), getattr(want, field),
+                 f"K3 {field} on every lane of the primary batch")
+    plain_s = time.perf_counter() - t0
     S = 16384
-    small = dx.dense_hit(cs.geom, o_s[:S], d_s[:S], lim_s[:S], cs.dense)
+    small = dx.dense_hit(cs.geom, o_b[:S], d_b[:S], lim_b[:S], cs.dense)
     for field in ("inst", "prim", "t"):
         bit_diff(getattr(small, field), getattr(want, field)[:S],
                  f"K3 {field} at {S} lanes")
-    # u, v pairs of the whole batch, estimated from every 16th lane
-    uv = 16 * dense_uv_pairs(torch, cs.geom, cs.dense, o_s, d_s, lim_s,
-                             want.t)
-    del o_s, d_s, lim_s, want, small
+    # the cull's work and the u, v pairs, counted on every 16th block of
+    # 256 lanes (whole blocks, so that the warps and blocks are the
+    # kernel's) and scaled by 16
+    sub = torch.nonzero((torch.arange(T, device=o_b.device) // 256) % 16
+                        == 0)[:, 0]
+    cull = dense_cull_counts(torch, cs.geom, cs.dense, o_b[sub], d_b[sub],
+                             lim_b[sub])
+    cull = {k: 16 * v for k, v in cull.items()}
+    uv = cull["uv_all"]
+    del want, small
     n_hm = int(((k2.inst >= 0) != (k3.inst >= 0)).sum())
     same = (k2.inst == k3.inst) & (k2.prim == k3.prim)
     frac = float(same.float().mean())
     recs = [hr.hitrec_record(cs.tri_wide, cs.inst_wide, o_b, d_b, h.t,
                              h.prim, h.inst, cs.sphere_uv) for h in (k2, k3)]
     bit_diff(recs[1][same], recs[0][same], "K1 records of K3's winners")
-    bound, _, pairs = dense_bound(cs.dense, T, T, uv)
-    kernels["dense_hit"]["ms_primary_batch"] = ms_b
-    print(f"dense: K3 on the 1080p primary batch B={T}: {ms_b:.2f} ms "
+    full, _, pairs = dense_bound(cs.dense, T, T, cull, False)
+    bound, by, _ = dense_bound(cs.dense, T, T, cull, True)
+    kernels["dense_hit"].update(ms_primary_batch=ms_b)
+    print(f"dense: K3 on the 1080p primary batch B={T}: {ms_b:.3f} ms "
           f"({pairs:.3e} pairs, about {uv:.3e} of them need u and v; bound "
-          f"{bound:.2f} ms, {100 * bound / ms_b:.1f}% of it); bit-equal to "
-          f"the plain version at every 16th lane and on a {S}-lane launch; "
-          f"against K2: "
+          f"of the culled search {bound:.3f} ms ({by}, "
+          f"{100 * bound / ms_b:.1f}% of it), of the full search "
+          f"{full:.2f} ms ({100 * full / ms_b:.1f}%)); bit-equal to the "
+          f"plain version on every lane (plain {plain_s:.1f} s) and on a "
+          f"{S}-lane launch; against K2: "
           f"{n_hm} hit/miss differences, (inst, prim) equal on {frac:.6f} "
           f"of the lanes ({T - int(same.sum())} differ), K1 records "
           f"bit-equal where equal; {int((k3.inst >= 0).sum())} hits",
           flush=True)
+    print(f"dense: K3 cull on the primary batch (every 16th block, x16): "
+          f"{fmt_cull(cull)}", flush=True)
     if n_hm or frac < 0.999:
         fail("dense: K3's winners against K2's on the primary batch")
-    del o_b, d_b, lim_b, k2, k3, recs, same
+    del o_b, d_b, lim_b, k2, k3, recs, same, sub
 
     walk = make_renderer(cs)                      # built before the switch
     prev = os.environ.get("CRAYTPU_TRAVERSAL")

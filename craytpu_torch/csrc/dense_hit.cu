@@ -1,5 +1,5 @@
-// K3: closest hit of each ray by a dense search over every triangle of
-// every instance, with no BVH (CRAYTPU_TRAVERSAL=dense).
+// K3: closest hit of each ray by a dense search over the triangles of
+// every instance, with no BVH walk (CRAYTPU_TRAVERSAL=dense).
 //
 // Replaces the JAX package's XLA dense search, craytpu/ops/dense_isect.py
 // (_search_mesh, make_dense_traverse_fn): there a lax.scan over
@@ -10,29 +10,107 @@
 // the plain version (ops/dense_isect.py::dense_hit_plain) returns: each
 // bilinear quantity is the explicit sum of its products in phi's feature
 // order, two roundings a term (-fmad=false), 1/det correctly rounded,
-// the same validity mask, the same tie rules (a strict t < best over the
-// triangles in row order, spheres by the walk's quadratic with
-// t <= best, instances in index order).
+// the same validity mask; instances in index order, spheres by the
+// walk's quadratic with t <= best.
 //
-// What bounds it on an H100: operations. Every (ray, triangle) pair costs
-// 38 f32 operations (5 for det, 11 each for u*det and v*det, 6 for t*det,
-// the reciprocal, 3 products, u + v) and 5 compares, none of them fused
-// (-fmad=false), and there are rays x triangles of them: 1.4e11 pairs for
-// one 2^20-ray batch of stress_highpoly, against 12 MB of rays and an
-// 8.4 MB table. The bytes are nothing; the f32 lanes are everything. What
-// the design does about it:
+// What bounds it on an H100: operations. A (ray, triangle) pair costs 13
+// f32 operations to reject on its t (5 for det, 6 for t*det, the
+// reciprocal, t) and 25 more for u*det, v*det, u, v and u + v, none fused
+// (-fmad=false); testing every pair is 1.4e11 pairs for one 2^20-ray
+// batch of stress_highpoly. So the design tests few pairs:
+//   - each mesh's 64-byte coefficient rows are in its BLAS leaf order
+//     (DenseLayout.leaf_table, the triangle id of each row beside it in
+//     leaf_ids), cut into groups of GROUP = 32 rows and superblocks of
+//     SUPER = 8 groups (TILE = 256 rows, one shared-memory tile), each
+//     with its mesh-space box, the mesh with its root box, so that a box
+//     holds triangles that lie together;
+//   - a ray that cannot use the root box skips the instance (the block
+//     skips it when no lane can, __syncthreads_or); each lane votes on
+//     each superblock box of a pass of SB_CHUNK superblocks, the votes of
+//     a warp go into a bit mask (__any_sync) that the block ors together,
+//     and the block streams only the voted superblocks through shared
+//     memory, double-buffered with cp.async (rows, ids and group boxes);
+//     in a loaded superblock a warp skips a group unless one of its lanes
+//     votes for the group's box (__any_sync);
+//   - in a group it runs, a pair computes det, t*det and t first and
+//     u*det, v*det, u, v only where 0 <= t <= best (each quantity by the
+//     same operations in the same order as the plain version's);
 //   - one thread a ray, one launch a search, the instance loop inside the
-//     kernel (stress_instances has 64 mesh instances; a launch each would
-//     multiply the host overhead that bounds every path);
-//   - a mesh's 64-byte coefficient rows (build_tri_table) stream through
-//     shared memory in tiles of TILE rows, double-buffered with cp.async:
-//     every thread of a block reads the same row at the same time (a
-//     broadcast: four 16-byte shared loads a pair), and the next tile
-//     lands while this one is searched;
-//   - the running (t, triangle, instance) stays in registers; a block
-//     whose lanes are all dead (a ragged pool) returns at once.
-// Not done yet (later work): tensor cores through a split-precision
-// product, per-block bounding-box culling, early det/t rejects.
+//     kernel; the running (t, triangle, instance) stays in registers; a
+//     block whose lanes are all dead returns at once.
+//
+// Tie contract (the leaf order is not the id order): inside one mesh
+// instance a pair wins on t < best, or on t == best when the best is a
+// triangle of this same instance with a higher id; across instances a
+// mesh needs t < best (the earlier instance keeps an equal hit); a sphere
+// wins on t <= best. The plain version scans ids in order with a strict
+// <, so both pick the least (t, id) of each instance, and the same
+// result.
+//
+// The cull is conservative for every pair whose ray is at least THETA =
+// 2^-5 (1.8 degrees) off its triangle's plane. Let u = 2^-24, the ray
+// (o, d) in instance space (rounded, but exactly what the pair test
+// uses), O = max|o_i|, A = max|d_i|; for a triangle, V >= max|coordinate|
+// of its vertices (the box's), L <= 2V its largest edge component. The
+// table's coefficients carry rounding: |n_i err| <= 4uL^2 (compile's n),
+// v0 x e2 and v0 x e1 <= 4.01uVL each component (numpy), n.v0 <=
+// 30.2uL^2 V against the exact n.v0; w = d x o <= 4.1uAO (exact and fast
+// forms). With recursive-summation bounds (gamma_k <= 1.01ku), the
+// computed quantities lie within
+//     E_det <= 30.2 u A L^2,  E_ud, E_vd <= 49 u A L (V + O),
+//     E_td  <= 55 u L^2 (V + O)
+// of the exact Möller–Trumbore values of the triangle with the exact
+// vertices. For a pair the plain test accepts (u_c, v_c >= 0,
+// u_c + v_c <= 1 + 1.01u, 0 <= t_c <= best) with |det| >= rho A L^2:
+//     |u* - u_c| <= 2.03u + 49u (V + O) / (rho L) + 30.6u / rho  (so v),
+//     |t* - t_c| <= t_c (2.03u + 30.2u / rho) + 55u (V + O) / (rho A),
+// and the exact ray point at t*, v0 + u*(v1 - v0) + v*(v2 - v0), lies
+// within sqrt(3) L (|du| + |dv|) + 1.75uL <= u (382 / rho + 18) (V + O)
+// of the triangle. At rho = RHO = 2^-6 that is
+//     box margin   K_BOX = 382 / RHO + 18 = 24,466 u (V + O),
+//     t margin     t * K_REL u + K_ABS u (V + O) / A,
+//                  K_REL = 2.03 + 30.2 / RHO = 1,935,
+//                  K_ABS = 55 / RHO = 3,520
+// (about 1.5e-3 (V + O): 6e-3 on stress_highpoly, whose triangles are
+// about 0.014 across in mesh space). Each margin is a / rho + b with a, b
+// >= 0, so at any rho >= RHO / F (F >= 1) it is at most F times its value
+// at RHO.
+//
+// Which rho a ray has: a ray at angle alpha to the plane of a triangle
+// with exact normal n has |det| = |d| |n| sin(alpha) >= A mu L^2
+// sin(alpha), mu = |n| / L^2 the triangle's shape (a sliver's mu is
+// small). So rho >= THETA mu for every ray at least THETA off the plane.
+// Each box carries in its eighth float F = max(1, RHO / (THETA mu_min)),
+// mu_min the least mu of its triangles (ops/dense_isect.py::box_factor,
+// in float64, rounded up; +inf for a degenerate triangle), and scales
+// the margins by it: a box whose inflated slab interval misses [-K_ABS F
+// u (V + O) / A, best (1 + K_REL F u) + K_ABS F u (V + O) / A] holds no
+// pair the plain test accepts at or below the best with its ray at least
+// THETA off the triangle's plane.
+//
+// A ray within THETA of a triangle's plane is not covered. A larger F
+// would cover rays closer to it (the margins grow as 1 / sin(alpha)), but
+// no margin covers them all: for a ray in the plane, det, u*det, v*det
+// and t*det are all rounding errors, so the plain test may accept the
+// pair (rarely: all four must fall the right way) with t anywhere on the
+// ray. Only a bound on every triangle's normal could keep such a box for
+// such a ray (a normal cone a box), and on a displaced mesh the normals
+// of one group spread so widely that it would keep a large share of the
+// groups for every ray that misses (scripts/dense_cull_band.py measures
+// it).
+//
+// The box test (box_keep, and ops/dense_isect.py::box_keep operation for
+// operation) rounds to nearest and encloses instead: the margins are
+// passed rounded up with room for their own roundings (MARGIN_BOX =
+// 1.01 (K_BOX + 2) u, MARGIN_REL = (K_REL + 4) u, MARGIN_ABS = 1.01
+// K_ABS u; the few roundings of (O + V) F and of the products with it
+// are within the 1.01, and 1 + MARGIN_REL F rounds to at least 1 +
+// (K_REL F + 2.9) u); a slab end (x - o) * (1/d) is within 3.01u of its
+// exact value relatively, so the entry (the max over axes) is widened by
+// WIDEN = 2^-20 = 16u relatively and FLT_MIN absolutely (subnormal
+// products), the exit likewise; fmaxf/fminf drop the NaN of a d_i = 0
+// axis whose origin lies on a slab plane (that axis does not bound the
+// ray), and a NaN comparison keeps the box. Dead lanes vote for nothing.
 #include <cuda_runtime.h>
 
 #include "detmath.cuh"
@@ -40,101 +118,264 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE = 256;  // triangle rows a shared-memory tile
-constexpr int ROW = 4;     // float4s a row
+constexpr int GROUP = 32;               // rows a group (one warp's vote)
+constexpr int SUPER = 8;                // groups a superblock
+constexpr int TILE = GROUP * SUPER;     // rows a superblock (one tile)
+constexpr int ROW = 4;                  // float4s a row
+constexpr int SB_CHUNK = 256;           // superblocks a pass of votes
+constexpr int WORDS = SB_CHUNK / 32;
 constexpr int INST_SPHERE = 1;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float WIDEN_DN = 1.0f - 0x1p-20f;
+constexpr float WIDEN_UP = 1.0f + 0x1p-20f;
+constexpr float FLT_MIN_F = 0x1p-126f;
 
-__device__ __forceinline__ void cp_async16(float4* smem, const float4* gmem) {
+struct Margins {
+  float box, rel, abs;  // MARGIN_BOX, MARGIN_REL, MARGIN_ABS
+};
+
+// the box test's terms of one instance-space ray
+struct CullRay {
+  float o[3], inv[3];
+  bool neg[3];
+  float O, kA;
+};
+
+__device__ __forceinline__ void cull_ray(const float o[3], const float d[3],
+                                         const Margins& mg, CullRay& c) {
+  float A = 0.0f;
+  for (int a = 0; a < 3; ++a) {
+    c.o[a] = o[a];
+    c.inv[a] = __frcp_rn(d[a]);
+    c.neg[a] = signbit(d[a]);
+    A = a ? fmaxf(A, fabsf(d[a])) : fabsf(d[a]);
+  }
+  c.O = fmaxf(fmaxf(fabsf(o[0]), fabsf(o[1])), fabsf(o[2]));
+  c.kA = __fdiv_rn(mg.abs, A);
+}
+
+// whether the ray may use the box [lo.xyz, V] [hi.xyz, F] at its running
+// best (see the header); ops/dense_isect.py::box_keep
+__device__ __forceinline__ bool box_keep(const float4 lo, const float4 hi,
+                                         const CullRay& c, float best,
+                                         const Margins& mg) {
+  const float s = __fmul_rn(__fadd_rn(c.O, lo.w), hi.w);
+  const float m = __fmul_rn(mg.box, s);
+  const float tm = __fmul_rn(c.kA, s);
+  const float rel = __fadd_rn(__fmul_rn(mg.rel, hi.w), 1.0f);
+  const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
+  float en = 0.0f, ex = 0.0f;
+  for (int a = 0; a < 3; ++a) {
+    const float near = c.neg[a] ? __fadd_rn(h[a], m) : __fsub_rn(l[a], m);
+    const float far = c.neg[a] ? __fsub_rn(l[a], m) : __fadd_rn(h[a], m);
+    const float e = __fmul_rn(__fsub_rn(near, c.o[a]), c.inv[a]);
+    const float x = __fmul_rn(__fsub_rn(far, c.o[a]), c.inv[a]);
+    en = a ? fmaxf(en, e) : e;
+    ex = a ? fminf(ex, x) : x;
+  }
+  en = __fsub_rn(__fmul_rn(en, en > 0.0f ? WIDEN_DN : WIDEN_UP), FLT_MIN_F);
+  ex = __fadd_rn(__fmul_rn(ex, ex > 0.0f ? WIDEN_UP : WIDEN_DN), FLT_MIN_F);
+  const float tlim = __fadd_rn(__fmul_rn(best, rel), tm);
+  return !((en > ex) || (en > tlim) || (ex < -tm));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }
 
-// start copying rows [first, first + n) of the table into `buf`, as one
-// commit group of this thread
-__device__ __forceinline__ void load_tile(float4* buf, const float4* table,
-                                          int first, int n) {
-  const float4* src = table + static_cast<size_t>(first) * ROW;
-  for (int k = threadIdx.x; k < n * ROW; k += THREADS) {
-    cp_async16(buf + k, src + k);
-  }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// One mesh instance: rows [first, first + rows) of the table against the
-// instance-space ray (o, d, w = d x o). Updates (best_t, best_prim);
-// true if a triangle of this mesh became the best. Called by every thread
-// of the block alike (it synchronises the block).
-__device__ __forceinline__ bool search_mesh(float4 (*tiles)[TILE * ROW],
-                                            const float4* table, int first,
-                                            int rows, const float o[3],
+// The shared-memory copy of one superblock: its rows, their triangle ids
+// and its groups' boxes.
+struct Tile {
+  float4 rows[TILE * ROW];
+  int ids[TILE];
+  float4 boxes[SUPER * 2];
+};
+
+// the mesh's rows, as the kernel reads them
+struct Mesh {
+  const float4* table;  // leaf_table rows of the mesh
+  const int* ids;       // their triangle ids
+  const float4* group_box;  // the mesh's group boxes (2 float4s each)
+  int rows;
+};
+
+// start copying superblock s of the mesh into `t`, as one commit group of
+// this thread
+__device__ __forceinline__ void load_super(Tile& t, const Mesh& mesh,
+                                           int s) {
+  const int r0 = s * TILE;
+  const int n = min(mesh.rows - r0, TILE);
+  const int groups = (n + GROUP - 1) / GROUP;
+  const float4* src = mesh.table + static_cast<size_t>(r0) * ROW;
+  for (int k = threadIdx.x; k < n * ROW; k += THREADS) {
+    cp_async16(t.rows + k, src + k);
+  }
+  if (threadIdx.x < n) cp_async4(t.ids + threadIdx.x, mesh.ids + r0 +
+                                 threadIdx.x);
+  if (threadIdx.x < 2 * groups) {
+    cp_async16(t.boxes + threadIdx.x,
+               mesh.group_box + static_cast<size_t>(s) * SUPER * 2 +
+                   threadIdx.x);
+  }
+  commit();
+}
+
+// the least voted superblock after `after` (relative to the pass), or -1
+__device__ __forceinline__ int next_voted(const unsigned* need, int after,
+                                          int count) {
+  for (int i = after + 1; i < count; i = (i | 31) + 1) {
+    const unsigned w = need[i >> 5] >> (i & 31);
+    if (w) return i + __ffs(w) - 1;
+  }
+  return -1;
+}
+
+// The pairs of one loaded superblock: each group whose box a lane of the
+// warp votes for, row by row. Updates (best_t, best_prim, here).
+__device__ __forceinline__ void search_tile(const Tile& t, int n,
+                                            const CullRay& c, bool vote,
                                             const float d[3],
-                                            const float w[3], float& best_t,
-                                            int& best_prim) {
-  bool found = false;
-  const int ntiles = (rows + TILE - 1) / TILE;
-  load_tile(tiles[0], table, first, min(rows, TILE));
-  for (int k = 0; k < ntiles; ++k) {
-    const int next = (k + 1) * TILE;
-    // the next tile's copies (an empty group after the last tile keeps
-    // the wait below uniform), then wait for this tile's
-    load_tile(tiles[(k + 1) & 1], table, first + next,
-              k + 1 < ntiles ? min(rows - next, TILE) : 0);
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-    const float4* tile = tiles[k & 1];
-    const int n = min(rows - k * TILE, TILE);
-    const int base = first + k * TILE;
-    for (int j = 0; j < n; ++j) {
+                                            const float w[3],
+                                            const Margins& mg, float& best_t,
+                                            int& best_prim, bool& here) {
+  const int groups = (n + GROUP - 1) / GROUP;
+  for (int g = 0; g < groups; ++g) {
+    const bool v =
+        vote && box_keep(t.boxes[2 * g], t.boxes[2 * g + 1], c, best_t, mg);
+    if (!__any_sync(FULL, v)) continue;
+    const int j1 = min(g * GROUP + GROUP, n);
+    for (int j = g * GROUP; j < j1; ++j) {
       // [n(3) v0xe2(3) -e2(3) v0xe1(3) -e1(3) n.v0]
-      const float4 a = tile[ROW * j], b = tile[ROW * j + 1];
-      const float4 c = tile[ROW * j + 2], e = tile[ROW * j + 3];
+      const float4 a = t.rows[ROW * j], e = t.rows[ROW * j + 3];
       const float det = __fadd_rn(
           __fadd_rn(__fmul_rn(d[0], a.x), __fmul_rn(d[1], a.y)),
           __fmul_rn(d[2], a.z));
+      float td = __fadd_rn(__fmul_rn(c.o[0], -a.x), __fmul_rn(c.o[1], -a.y));
+      td = __fadd_rn(td, __fmul_rn(c.o[2], -a.z));
+      td = __fadd_rn(td, e.w);
+      const float inv = __frcp_rn(det);  // 1/det, correctly rounded
+      const float tt = __fmul_rn(td, inv);
+      if (!(tt >= 0.0f && tt <= best_t)) continue;  // NaN fails too
+      const float4 b = t.rows[ROW * j + 1], cc = t.rows[ROW * j + 2];
       float ud = __fadd_rn(__fmul_rn(d[0], a.w), __fmul_rn(d[1], b.x));
       ud = __fadd_rn(ud, __fmul_rn(d[2], b.y));
       ud = __fadd_rn(ud, __fmul_rn(w[0], b.z));
       ud = __fadd_rn(ud, __fmul_rn(w[1], b.w));
-      ud = __fadd_rn(ud, __fmul_rn(w[2], c.x));
-      float vd = __fadd_rn(__fmul_rn(d[0], c.y), __fmul_rn(d[1], c.z));
-      vd = __fadd_rn(vd, __fmul_rn(d[2], c.w));
+      ud = __fadd_rn(ud, __fmul_rn(w[2], cc.x));
+      float vd = __fadd_rn(__fmul_rn(d[0], cc.y), __fmul_rn(d[1], cc.z));
+      vd = __fadd_rn(vd, __fmul_rn(d[2], cc.w));
       vd = __fadd_rn(vd, __fmul_rn(w[0], e.x));
       vd = __fadd_rn(vd, __fmul_rn(w[1], e.y));
       vd = __fadd_rn(vd, __fmul_rn(w[2], e.z));
-      float td = __fadd_rn(__fmul_rn(o[0], -a.x), __fmul_rn(o[1], -a.y));
-      td = __fadd_rn(td, __fmul_rn(o[2], -a.z));
-      td = __fadd_rn(td, e.w);
-      const float inv = __frcp_rn(det);  // 1/det, correctly rounded
       const float u = __fmul_rn(ud, inv);
-      const float v = __fmul_rn(vd, inv);
-      const float t = __fmul_rn(td, inv);
-      // NaN fails every compare
-      if (u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f && t >= 0.0f &&
-          t < best_t) {
-        best_t = t;
-        best_prim = base + j;
-        found = true;
+      const float vv = __fmul_rn(vd, inv);
+      if (u >= 0.0f && vv >= 0.0f && __fadd_rn(u, vv) <= 1.0f) {
+        const int id = t.ids[j];
+        // t < best, or t == best against a higher id of this instance
+        if (tt < best_t || (here && id < best_prim)) {
+          best_t = tt;
+          best_prim = id;
+          here = true;
+        }
       }
     }
-    __syncthreads();  // this buffer is refilled two tiles on
   }
-  return found;
+}
+
+// One mesh instance: the mesh's rows behind its boxes against the
+// instance-space ray (o, d). Updates (best_t, best_prim); true if a
+// triangle of this instance became the best. Called by every thread of
+// the block alike (it synchronises the block).
+__device__ __forceinline__ bool search_mesh(
+    Tile (&tiles)[2], unsigned* need, const Mesh& mesh,
+    const float4* root, const float4* block_box, bool live,
+    const float o[3], const float d[3], const Margins& mg, float& best_t,
+    int& best_prim) {
+  CullRay c;
+  cull_ray(o, d, mg, c);
+  const bool vote = live && box_keep(root[0], root[1], c, best_t, mg);
+  if (!__syncthreads_or(vote)) return false;
+  float w[3];
+  detm::cross(d, o, w);
+  bool here = false;
+  const int nsb = (mesh.rows + TILE - 1) / TILE;
+  const bool warp_votes = __any_sync(FULL, vote);
+  for (int c0 = 0; c0 < nsb; c0 += SB_CHUNK) {
+    const int count = min(nsb - c0, SB_CHUNK);
+    __syncthreads();  // every thread is done with the last pass's mask
+    if (threadIdx.x < WORDS) need[threadIdx.x] = 0u;
+    __syncthreads();
+    if (warp_votes) {
+      unsigned bits = 0u;
+      for (int s = 0; s < count; ++s) {
+        const float4* b = block_box + 2 * static_cast<size_t>(c0 + s);
+        const bool v = vote && box_keep(__ldg(b), __ldg(b + 1), c, best_t,
+                                        mg);
+        if (__any_sync(FULL, v)) bits |= 1u << (s & 31);
+        if ((s & 31) == 31 || s == count - 1) {
+          if ((threadIdx.x & 31) == 0 && bits) atomicOr(need + (s >> 5),
+                                                        bits);
+          bits = 0u;
+        }
+      }
+    }
+    __syncthreads();
+    int cur = next_voted(need, -1, count);
+    if (cur < 0) continue;
+    load_super(tiles[0], mesh, c0 + cur);
+    for (int k = 0; cur >= 0; ++k) {
+      // the next voted superblock's copies (an empty group after the last
+      // keeps the wait below uniform), then wait for this one's
+      const int nxt = next_voted(need, cur, count);
+      if (nxt >= 0) {
+        load_super(tiles[(k + 1) & 1], mesh, c0 + nxt);
+      } else {
+        commit();
+      }
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();
+      const int n = min(mesh.rows - (c0 + cur) * TILE, TILE);
+      search_tile(tiles[k & 1], n, c, vote, d, w, mg, best_t, best_prim,
+                  here);
+      __syncthreads();  // this buffer is refilled two superblocks on
+      cur = nxt;
+    }
+  }
+  return here;
 }
 
 __global__ void __launch_bounds__(THREADS)
     dense_hit_kernel(const float* __restrict__ o_w,
                      const float* __restrict__ d_w,
                      const float* __restrict__ limit, int B,
-                     const float4* __restrict__ table,
+                     const float4* __restrict__ leaf_table,
+                     const int* __restrict__ leaf_ids,
                      const int4* __restrict__ plan, int n_inst,
+                     const int2* __restrict__ mesh_index,
+                     const float4* __restrict__ root_box,
+                     const float4* __restrict__ block_box,
+                     const float4* __restrict__ group_box,
                      const float* __restrict__ inst_Ainv,
                      const float* __restrict__ inst_offset,
-                     const float* __restrict__ sph_radius,
+                     const float* __restrict__ sph_radius, Margins mg,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
                      int* __restrict__ inst_out) {
-  __shared__ __align__(16) float4 tiles[2][TILE * ROW];
+  __shared__ __align__(16) Tile tiles[2];
+  __shared__ unsigned need[WORDS];
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in = ray < B;
   // a lane past B searches as a dead lane (the block synchronises)
@@ -147,6 +388,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     return;
   }
+  const bool live = lim > 0.0f;
   float ow[3], dw[3];
   for (int i = 0; i < 3; ++i) {
     ow[i] = in ? o_w[3 * ray + i] : 0.0f;
@@ -169,35 +411,44 @@ __global__ void __launch_bounds__(THREADS)
         best_inst = i;
       }
     } else {
-      float w[3];
-      detm::cross(d, o, w);
-      if (search_mesh(tiles, table, p.y, p.z, o, d, w, best_t, best_prim)) {
+      const int2 mi = __ldg(mesh_index + p.w);  // first superblock, group
+      const Mesh mesh{leaf_table + static_cast<size_t>(p.y) * ROW,
+                      leaf_ids + p.y,
+                      group_box + 2 * static_cast<size_t>(mi.y), p.z};
+      if (search_mesh(tiles, need, mesh, root_box + 2 * p.w,
+                      block_box + 2 * static_cast<size_t>(mi.x), live, o, d,
+                      mg, best_t, best_prim)) {
         best_inst = i;
       }
     }
   }
   if (!in) return;
-  const bool dead = !(lim > 0.0f);
-  t_out[ray] = dead ? detm::FLT_MAX_F : best_t;
-  prim_out[ray] = dead ? -1 : best_prim;
-  inst_out[ray] = dead ? -1 : best_inst;
+  t_out[ray] = live ? best_t : detm::FLT_MAX_F;
+  prim_out[ray] = live ? best_prim : -1;
+  inst_out[ray] = live ? best_inst : -1;
 }
 
 }  // namespace
 
-extern "C" int craytpu_dense_hit(const float* o_w, const float* d_w,
-                                 const float* limit, int B,
-                                 const float* table, const int* plan,
-                                 int n_inst, const float* inst_Ainv,
-                                 const float* inst_offset,
-                                 const float* sph_radius, float* t_out,
-                                 int* prim_out, int* inst_out, void* stream) {
+extern "C" int craytpu_dense_hit(
+    const float* o_w, const float* d_w, const float* limit, int B,
+    const float* leaf_table, const int* leaf_ids, const int* plan,
+    int n_inst, const int* mesh_index, const float* root_box,
+    const float* block_box, const float* group_box, const float* inst_Ainv,
+    const float* inst_offset, const float* sph_radius, float margin_box,
+    float margin_rel, float margin_abs, float* t_out, int* prim_out,
+    int* inst_out, void* stream) {
   if (B <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (B + THREADS - 1) / THREADS;
   dense_hit_kernel<<<blocks, THREADS, 0, st>>>(
-      o_w, d_w, limit, B, reinterpret_cast<const float4*>(table),
-      reinterpret_cast<const int4*>(plan), n_inst, inst_Ainv, inst_offset,
-      sph_radius, t_out, prim_out, inst_out);
+      o_w, d_w, limit, B, reinterpret_cast<const float4*>(leaf_table),
+      leaf_ids, reinterpret_cast<const int4*>(plan), n_inst,
+      reinterpret_cast<const int2*>(mesh_index),
+      reinterpret_cast<const float4*>(root_box),
+      reinterpret_cast<const float4*>(block_box),
+      reinterpret_cast<const float4*>(group_box), inst_Ainv, inst_offset,
+      sph_radius, Margins{margin_box, margin_rel, margin_abs}, t_out,
+      prim_out, inst_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -219,12 +219,13 @@ def library(name: str) -> ctypes.CDLL:
 def function(lib: str, symbol: str, signature: str):
     """The C entry point `symbol` of kernel library `lib`. `signature`
     has one letter per argument: "p" a pointer or stream (c_void_p), "i"
-    an int. The result is a cudaError_t."""
+    an int, "f" a float. The result is a cudaError_t."""
     fn = getattr(library(lib), symbol)
     if fn.argtypes is None:
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "f": ctypes.c_float}
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                       for c in signature]
+        fn.argtypes = [kinds[c] for c in signature]
     return fn
 
 

@@ -19,19 +19,29 @@ the kernel, so the two agree bit for bit. The search only has to pick the
 winner: K1 recomputes the winner's (t, u, v) exactly with the walk's
 triangle test (ops/hitrec.py::Isect).
 
-Order and tie rules (the contract `dense_hit_plain` and csrc/dense_hit.cu
-share): instances in index order, the running best carried across them
-in each instance's own t measure; a mesh's triangles in row order with a
-strict t < best (the lowest triangle index among equal t, as the JAX
-package's argmin per block and strict < across blocks); a sphere by the
-exact quadratic with t >= 1e-5 and t <= best, as the walk tests it. The
-instance-space ray is the walk's (`traverse.object_ray`), not the JAX
-package's einsum. The best distance starts at the ray's limit; a lane
-whose limit is not > 0 (a dead lane) misses.
+The function (`dense_hit_plain`, its definition): instances in index
+order, the running best carried across them in each instance's own t
+measure; a mesh's triangles in id order with a strict t < best (the
+lowest triangle id among equal t, as the JAX package's argmin per block
+and strict < across blocks); a sphere by the exact quadratic with t >=
+1e-5 and t <= best, as the walk tests it. The instance-space ray is the
+walk's (`traverse.object_ray`), not the JAX package's einsum. The best
+distance starts at the ray's limit; a lane whose limit is not > 0 (a
+dead lane) misses.
+
+The kernel (csrc/dense_hit.cu) reads each mesh's rows in its BLAS leaf
+order instead (`DenseLayout.leaf_table`, each row carrying its triangle
+id in `leaf_ids`), in groups of GROUP rows and superblocks of SUPER
+groups, each behind a mesh-space box, the whole mesh behind its root box;
+it skips a box that the ray provably cannot use (`dense_cull_plain`
+models that decision). Its tie contract, which gives the same result:
+inside one mesh instance a pair wins on t < best, or on t == best when
+the best is a triangle of this same instance with a higher id (the
+lowest id among equal t, in any row order); across instances ties stay
+strict (the earlier instance keeps its hit); spheres keep t <= best.
 
 `dense_hit` is the dispatching wrapper: tensors on the CPU go to the
-plain version, CUDA tensors to the hand-written kernel
-(csrc/dense_hit.cu).
+plain version, CUDA tensors to the hand-written kernel.
 """
 
 from __future__ import annotations
@@ -97,24 +107,98 @@ def build_tri_table(tri_packed: np.ndarray) -> np.ndarray:
         np.concatenate([*vecs, nv0[:, None]], axis=1), dtype=np.float32)
 
 
+# The kernel's layout: rows a group (one warp's vote) and groups a
+# superblock (one shared-memory tile); superblocks whose votes one pass
+# of the kernel gathers (a bit each)
+GROUP = 32
+SUPER = 8
+TILE = GROUP * SUPER
+SB_CHUNK = 256
+# boxes a call of the cull model's vectorised box test
+VOTE_CHUNK = 256
+
+# The cull's margins, derived in csrc/dense_hit.cu's header: an accepted
+# pair whose |det| >= rho * A * L^2 (L the triangle's largest edge
+# component, O and A the ray's largest |o_i| and |d_i|, V the box's
+# largest |coordinate|) lies within K_BOX * U * (V + O) of its
+# triangle's box and within t * K_REL * U + K_ABS * U * (V + O) / A of
+# its own t along the ray, the K's taken at rho = RHO. A ray at least
+# THETA off the plane of a triangle of shape mu = |n| / L^2 has rho >=
+# THETA * mu, so each box carries the factor BOX_F = max(1, RHO / (THETA
+# * mu_min)) of its triangles and the kernel scales the K's by it.
+U = 2.0 ** -24
+RHO = 2.0 ** -6
+THETA = 2.0 ** -5
+K_BOX = 382 / RHO + 18
+K_REL = 2.03 + 30.2 / RHO
+K_ABS = 55 / RHO
+
+
+def _f32_up(x: float) -> float:
+    """The least float32 >= x, as a Python float."""
+    f = np.float32(x)
+    return float(f if float(f) >= x else np.nextafter(f, np.float32(np.inf)))
+
+
+# what the kernel multiplies by, rounded up, with room for the rounding
+# of the box test's own operations (see the kernel's header); MARGIN_REL
+# is the relative t margin's excess over 1
+MARGIN_BOX = _f32_up((K_BOX + 2) * U * 1.01)
+MARGIN_REL = _f32_up((K_REL + 4) * U)
+MARGIN_ABS = _f32_up(1.01 * K_ABS * U)
+# a slab interval computed in round-to-nearest, widened: 16 ulp a side
+# and FLT_MIN (below it, the products lose their relative bound)
+WIDEN_DN = 1.0 - 2.0 ** -20
+WIDEN_UP = 1.0 + 2.0 ** -20
+FLT_MIN = 2.0 ** -126
+
+
 @dataclass
 class DenseLayout:
     """The dense search's copy of the scene (`CompiledScene.dense`).
 
-      table (P, 16) f32: build_tri_table of tri_packed, row = triangle id.
       plan (I, 4) i32: per instance, in search (index) order: [kind,
         first row, rows, object]; rows is 0 for an instance the search
-        skips (a mesh without triangles).
+        skips (a mesh without triangles). A mesh's rows are [first, first
+        + rows) of both tables.
+      leaf_table (P, 16) f32: build_tri_table's rows, each mesh's in its
+        BLAS leaf order (`mesh_leaf_rows`); leaf_ids (P,) i32 the
+        triangle id of each (a permutation of range(P)).
+      mesh_index (M, 2) i32: per mesh object, its first superblock and
+        first group. A mesh's groups are GROUP consecutive rows of
+        leaf_table from its first row (the last may be short), its
+        superblocks SUPER consecutive groups.
+      root_box (M, 8), block_box (S, 8), group_box (G, 8) f32: mesh-space
+        boxes [lo (3), V, hi (3), F] of each mesh, superblock and group:
+        the exact bounds of its triangles' vertices widened by an ulp, V
+        the largest |coordinate| of the box, F its margin factor
+        (`box_factor`).
+
+    `table` is the plain version's copy, row = triangle id, made from
+    leaf_table when it is read.
     """
-    table: torch.Tensor
     plan: torch.Tensor
+    leaf_table: torch.Tensor
+    leaf_ids: torch.Tensor
+    mesh_index: torch.Tensor
+    root_box: torch.Tensor
+    block_box: torch.Tensor
+    group_box: torch.Tensor
+
+    @property
+    def table(self) -> torch.Tensor:
+        """(P, 16) f32: build_tri_table of tri_packed in file order."""
+        t = torch.empty_like(self.leaf_table)
+        t[self.leaf_ids.long()] = self.leaf_table
+        return t
 
 
-def mesh_rows(geom: Geometry) -> list:
-    """(first triangle id, triangle count) of each mesh, (0, 0) for a mesh
-    without a BVH, read from the flattened BVH alone: mesh m's BLAS nodes
-    run from blas_root[m] to the next root, and its leaves' slots hold
-    its triangle ids, base + a permutation of range(count)."""
+def mesh_leaf_rows(geom: Geometry) -> list:
+    """(first triangle id, triangle count, ids in leaf order) of each mesh,
+    (0, 0, None) for a mesh without a BVH, read from the flattened BVH
+    alone: mesh m's BLAS nodes run from blas_root[m] to the next root, and
+    its leaves' slots hold its triangle ids, base + a permutation of
+    range(count), in leaf order."""
     root = geom.blas_root.cpu().numpy()
     child = geom.node_child.cpu().numpy()
     count = geom.node_count.cpu().numpy()
@@ -123,7 +207,7 @@ def mesh_rows(geom: Geometry) -> list:
     out = []
     for r in root:
         if r < 0:
-            out.append((0, 0))
+            out.append((0, 0, None))
             continue
         end = starts[starts.index(int(r)) + 1]
         leaf = count[r:end] > 0
@@ -134,31 +218,120 @@ def mesh_rows(geom: Geometry) -> list:
         if int(ids.max()) != base + n - 1:
             raise ValueError(f"mesh BVH at node {r}: its leaves do not hold "
                              "one contiguous range of triangles")
-        out.append((base, n))
+        out.append((base, n, ids.astype(np.int32)))
     return out
+
+
+def mesh_rows(geom: Geometry) -> list:
+    """(first triangle id, triangle count) of each mesh, (0, 0) for a mesh
+    without a BVH (`mesh_leaf_rows` without the order)."""
+    return [(base, n) for base, n, _ in mesh_leaf_rows(geom)]
+
+
+def tri_bounds(tri_packed: np.ndarray) -> tuple:
+    """(lo, hi) (P, 3) of each packed triangle's vertices v0, v1 = v0 - e1,
+    v2 = e2 + v0, as the JAX package's build_tri_coeffs_T computes them
+    (craytpu/ops/dense_isect.py), then widened by one ulp outward so that
+    they hold the exact vertices (v1 and v2 are rounded)."""
+    tri = np.asarray(tri_packed, np.float32)
+    v0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    v1 = v0 - e1
+    v2 = e2 + v0
+    lo = np.minimum(v0, np.minimum(v1, v2))
+    hi = np.maximum(v0, np.maximum(v1, v2))
+    return (np.nextafter(lo, np.float32(-np.inf)),
+            np.nextafter(hi, np.float32(np.inf)))
+
+
+def tri_shape(tri_packed: np.ndarray) -> np.ndarray:
+    """mu = |n| / L^2 (P,) float64 of each packed triangle with its exact
+    vertices v0, v0 - e1, v0 + e2: n = (v1 - v0) x (v2 - v0), L the
+    largest |component| of its three edges; 0 for a degenerate one."""
+    tri = np.asarray(tri_packed, np.float32).astype(np.float64)
+    v0 = tri[:, 0:3]
+    v1, v2 = v0 - tri[:, 3:6], v0 + tri[:, 6:9]
+    L = np.max([np.abs(e).max(axis=1) for e in (v1 - v0, v2 - v0, v2 - v1)],
+               axis=0)
+    n = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(L > 0.0, n / (L * L), 0.0)
+
+
+def box_factor(mu_min: np.ndarray) -> np.ndarray:
+    """The margin factor F of boxes whose least triangle shape is mu_min:
+    max(1, RHO / (THETA * mu_min)), rounded up (with room for the float64
+    rounding of mu) to float32; +inf for a box holding a degenerate
+    triangle (the kernel then always keeps it)."""
+    with np.errstate(divide="ignore"):
+        f = np.maximum(1.0, RHO / (THETA * mu_min) * (1.0 + 2.0 ** -30))
+    f32 = f.astype(np.float32)
+    return np.where(f32.astype(np.float64) < f,
+                    np.nextafter(f32, np.float32(np.inf)), f32)
+
+
+def _boxes(lo: np.ndarray, hi: np.ndarray, mu: np.ndarray,
+           size: int) -> np.ndarray:
+    """(ceil(n / size), 8) boxes [lo, V, hi, F] of consecutive runs of
+    `size` rows of per-row bounds (n, 3) and shapes mu (n,)."""
+    at = np.arange(0, lo.shape[0], size)
+    blo = np.minimum.reduceat(lo, at, axis=0)
+    bhi = np.maximum.reduceat(hi, at, axis=0)
+    V = np.maximum(np.abs(blo), np.abs(bhi)).max(axis=1, keepdims=True)
+    F = box_factor(np.minimum.reduceat(mu, at))[:, None]
+    return np.concatenate([blo, V, bhi, F], axis=1).astype(np.float32)
 
 
 def build_dense(geom: Geometry, n_instances: int) -> DenseLayout:
     """The dense search's tables, on the device of `geom`."""
-    table = build_tri_table(geom.tri_packed.detach().cpu().numpy())
-    rows = mesh_rows(geom)
+    tri = geom.tri_packed.detach().cpu().numpy()
+    table = build_tri_table(tri)
+    lo, hi = tri_bounds(tri)
+    mu = tri_shape(tri)
+    meshes = mesh_leaf_rows(geom)
+    leaf = np.arange(table.shape[0], dtype=np.int32)
+    index = np.zeros((len(meshes), 2), np.int32)
+    roots = np.zeros((len(meshes), 8), np.float32)
+    blocks, groups = [], []
+    n_blocks = n_groups = 0
+    for m, (base, n, order) in enumerate(meshes):
+        index[m] = (n_blocks, n_groups)
+        if n == 0:
+            continue
+        leaf[base:base + n] = order
+        mlo, mhi, mmu = lo[order], hi[order], mu[order]
+        roots[m] = _boxes(mlo, mhi, mmu, n)[0]
+        blocks.append(_boxes(mlo, mhi, mmu, TILE))
+        groups.append(_boxes(mlo, mhi, mmu, GROUP))
+        n_blocks += blocks[-1].shape[0]
+        n_groups += groups[-1].shape[0]
     kind = geom.inst_kind.cpu().numpy()
     obj = geom.inst_obj.cpu().numpy()
     plan = np.zeros((n_instances, 4), np.int32)
     for i in range(n_instances):
         k, o = int(kind[i]), int(obj[i])
-        first, n = rows[o] if k == INST_MESH else (0, 0)
+        first, n = meshes[o][:2] if k == INST_MESH else (0, 0)
         plan[i] = (k, first, n, o)
     dev = geom.tri_packed.device
-    return DenseLayout(table=torch.from_numpy(table).to(dev),
-                       plan=torch.from_numpy(plan).to(dev))
+
+    def dev_t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def stack(boxes):
+        return np.concatenate(boxes) if boxes else np.zeros((0, 8),
+                                                            np.float32)
+    return DenseLayout(plan=dev_t(plan),
+                       leaf_table=dev_t(table[leaf]),
+                       leaf_ids=dev_t(leaf), mesh_index=dev_t(index),
+                       root_box=dev_t(roots), block_box=dev_t(stack(blocks)),
+                       group_box=dev_t(stack(groups)))
 
 
-def _block_min(rows, o, d, w, best_t):
-    """Closest valid triangle of `rows` (C, 16) for each ray: (t, j), t
-    +inf where none is valid (t < best_t among them), j the lowest row
-    index of the minimum. Each quantity is the explicit sum of its
-    products in phi's feature order, two roundings a term."""
+def pair_tests(rows, o, d, w) -> tuple:
+    """Each ray's pair test against each row of `rows` (C, 16): (t,
+    valid) (B, C), valid where 0 <= t and (u, v) lies in the triangle (no
+    bound on t). Each quantity is the explicit sum of its products in
+    phi's feature order, two roundings a term, as the kernel computes
+    it."""
     def col(k):
         return rows[:, k][None, :]
 
@@ -174,9 +347,15 @@ def _block_min(rows, o, d, w, best_t):
           + col(15))
     inv = torch.ones_like(det) / det  # a tensor division: correctly rounded
     u, v, t = ud * inv, vd * inv, td * inv
-    valid = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0)
-             & (t < best_t[:, None]))
-    t = torch.where(valid, t, float("inf"))
+    return t, (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0)
+
+
+def _block_min(rows, o, d, w, best_t):
+    """Closest valid triangle of `rows` (C, 16) for each ray: (t, j), t
+    +inf where none is valid (`pair_tests` with t < best_t), j the lowest
+    row index of the minimum."""
+    t, valid = pair_tests(rows, o, d, w)
+    t = torch.where(valid & (t < best_t[:, None]), t, float("inf"))
     j = torch.argmin(t, dim=1)
     return t.gather(1, j[:, None])[:, 0], j
 
@@ -193,6 +372,7 @@ def dense_hit_plain(geom: Geometry, dense: DenseLayout, o_w, d_w,
     best_prim = torch.full((B,), -1, dtype=torch.int64, device=dev)
     best_inst = torch.full((B,), -1, dtype=torch.int64, device=dev)
     chunk = max(PLAIN_CHUNK_ELEMS // max(B, 1) // TRI_BLOCK, 1) * TRI_BLOCK
+    table = dense.table
     for i, (kind, first, n, obj) in enumerate(dense.plan.tolist()):
         if kind != INST_SPHERE and n == 0:
             continue
@@ -206,7 +386,7 @@ def dense_hit_plain(geom: Geometry, dense: DenseLayout, o_w, d_w,
             continue
         w = vm.vcross(d, o)
         for c in range(0, n, chunk):
-            rows = dense.table[first + c:first + min(c + chunk, n)]
+            rows = table[first + c:first + min(c + chunk, n)]
             t, j = _block_min(rows, o, d, w, best_t)
             upd = t < best_t
             best_t = torch.where(upd, t, best_t)
@@ -218,6 +398,144 @@ def dense_hit_plain(geom: Geometry, dense: DenseLayout, o_w, d_w,
                inst=torch.where(dead, -1, best_inst).to(torch.int32))
 
 
+def cull_ray(o, d):
+    """The box test's per-(ray, instance) terms of the instance-space ray
+    (o, d) (B, 3), as the kernel computes them: 1/d (correctly rounded),
+    d's sign bits, O = max |o_i| and MARGIN_ABS / A, A = max |d_i|."""
+    inv = torch.ones_like(d) / d
+    neg = torch.signbit(d)
+    O = o.abs().amax(dim=1)
+    kA = MARGIN_ABS / d.abs().amax(dim=1)
+    return inv, neg, O, kA
+
+
+def box_keep(box, o, cr, best):
+    """Whether each ray may use each box: (B, K) bool for boxes (K, 8)
+    [lo, V, hi, F], rays o (B, 3) with cull_ray terms `cr`, and running
+    best (B,), or (B, K), one for each box. The kernel's `box_keep`,
+    operation for operation (IEEE round to nearest; fmax and fmin drop a
+    NaN; a NaN comparison keeps): the slab interval of the box inflated
+    by MARGIN_BOX * (V + O) * F, widened, against [-tm, best * (1 +
+    MARGIN_REL * F) + tm], tm = kA * (V + O) * F."""
+    inv, neg, O, kA = cr
+    lo, V, hi, F = box[:, 0:3], box[:, 3], box[:, 4:7], box[:, 7]
+    sf = (O[:, None] + V[None, :]) * F[None, :]
+    m = MARGIN_BOX * sf
+    tm = kA[:, None] * sf
+    rel = (MARGIN_REL * F + 1.0)[None, :]
+    en = ex = None
+    for a in range(3):
+        ng = neg[:, a:a + 1]
+        near = torch.where(ng, hi[None, :, a], lo[None, :, a])
+        far = torch.where(ng, lo[None, :, a], hi[None, :, a])
+        near = torch.where(ng, near + m, near - m)
+        far = torch.where(ng, far - m, far + m)
+        e = (near - o[:, a:a + 1]) * inv[:, a:a + 1]
+        x = (far - o[:, a:a + 1]) * inv[:, a:a + 1]
+        en = e if en is None else torch.fmax(en, e)
+        ex = x if ex is None else torch.fmin(ex, x)
+    en = torch.where(en > 0.0, en * WIDEN_DN, en * WIDEN_UP) - FLT_MIN
+    ex = torch.where(ex > 0.0, ex * WIDEN_UP, ex * WIDEN_DN) + FLT_MIN
+    tlim = (best if best.dim() == 2 else best[:, None]) * rel + tm
+    return ~((en > ex) | (en > tlim) | (ex < -tm))
+
+
+def _group_min(rows, ids, o, d, w):
+    """Each ray's best pair of each GROUP-row group of `rows` (C, 16)
+    with triangle ids (C,): (t, id) (B, ceil(C / GROUP)), the least t of
+    the group's valid pairs (`pair_tests`) and the least id among equal t
+    (that pair's t); t +inf where none is valid."""
+    t, valid = pair_tests(rows, o, d, w)
+    t = torch.where(valid, t, float("inf"))
+    C = rows.shape[0]
+    pad = -C % GROUP
+    idx = ids.long()[None, :].expand_as(t)
+    if pad:
+        t = torch.cat([t, t.new_full((t.shape[0], pad), float("inf"))], 1)
+        idx = torch.cat([idx, idx.new_zeros((t.shape[0], pad))], 1)
+    t = t.view(t.shape[0], -1, GROUP)
+    idx = idx.reshape(t.shape)
+    # the least id among the least t, and that pair's own t (its sign of
+    # zero included)
+    key = torch.where(t == t.amin(dim=2, keepdim=True), idx,
+                      torch.iinfo(torch.int64).max)
+    pos = key.argmin(dim=2, keepdim=True)
+    return t.gather(2, pos)[..., 0], key.gather(2, pos)[..., 0]
+
+
+def dense_cull_plain(geom: Geometry, dense: DenseLayout, o_w, d_w,
+                     limit) -> tuple:
+    """A plain model of K3 as it runs: each mesh's rows in leaf order
+    (`leaf_table`), group by group under the kernel's tie rule, and the
+    box decisions the kernel takes on the way. Returns (Hit, cull): Hit
+    equals dense_hit_plain's bit for bit (the tests hold it to that);
+    cull has one dict per searched mesh instance, {"inst", "root" (B,),
+    "block" (B, S_m), "group" (B, G_m)}: bool votes of each live lane for
+    the instance's root box, each superblock box (against its best where
+    the kernel gathers the superblock votes: each SB_CHUNK superblocks)
+    and each group box (against its best when the kernel reaches the
+    group), each vote anded with the root's. A lane tests a group's rows
+    only where its group vote holds (its warp runs them where any lane's
+    does, in superblocks any lane of its block voted for). Nothing on
+    the card's path calls it."""
+    B = o_w.shape[0]
+    dev = o_w.device
+    live = limit > 0.0
+    best_t = limit.clone()
+    best_prim = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    best_inst = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    index = dense.mesh_index.tolist()
+    culls = []
+    chunk = max(PLAIN_CHUNK_ELEMS // max(B, 1) // TILE, 1) * TILE
+    for i, (kind, first, n, obj) in enumerate(dense.plan.tolist()):
+        if kind != INST_SPHERE and n == 0:
+            continue
+        o, d = trv.object_ray(geom.inst_Ainv[i], geom.inst_offset[i], o_w,
+                              d_w)
+        if kind == INST_SPHERE:
+            hit, t = isx.sphere_intersect(geom.sph_radius[obj], o, d, best_t)
+            best_t = torch.where(hit, t, best_t)
+            best_prim = torch.where(hit, -1, best_prim)
+            best_inst = torch.where(hit, i, best_inst)
+            continue
+        w = vm.vcross(d, o)
+        cr = cull_ray(o, d)
+        sb0, g0 = index[obj]
+        ng = -(-n // GROUP)
+        nb = -(-ng // SUPER)
+        root = live & box_keep(dense.root_box[obj:obj + 1], o, cr,
+                               best_t)[:, 0]
+        here = torch.zeros((B,), dtype=torch.bool, device=dev)
+        before = torch.empty((B, ng), dtype=best_t.dtype, device=dev)
+        for c in range(0, n, chunk):
+            tg, idg = _group_min(dense.leaf_table[first + c:first + min(
+                c + chunk, n)], dense.leaf_ids[first + c:first + min(
+                    c + chunk, n)], o, d, w)
+            for k in range(tg.shape[1]):
+                before[:, c // GROUP + k] = best_t
+                t, j = tg[:, k], idg[:, k]
+                upd = (t < best_t) | ((t == best_t) & here & (j < best_prim))
+                best_t = torch.where(upd, t, best_t)
+                best_prim = torch.where(upd, j, best_prim)
+                best_inst = torch.where(upd, i, best_inst)
+                here = here | upd
+        group = torch.cat([
+            box_keep(dense.group_box[g0 + k:g0 + min(k + VOTE_CHUNK, ng)],
+                     o, cr, before[:, k:k + VOTE_CHUNK])
+            for k in range(0, ng, VOTE_CHUNK)], 1) & root[:, None]
+        block = torch.cat([
+            box_keep(dense.block_box[sb0 + k:sb0 + min(k + VOTE_CHUNK, nb)],
+                     o, cr, before[:, k // SB_CHUNK * SB_CHUNK * SUPER])
+            for k in range(0, nb, VOTE_CHUNK)], 1) & root[:, None]
+        culls.append({"inst": i, "root": root, "block": block,
+                      "group": group})
+    dead = ~live
+    hit = Hit(t=torch.where(dead, FLT_MAX, best_t),
+              prim=torch.where(dead, -1, best_prim).to(torch.int32),
+              inst=torch.where(dead, -1, best_inst).to(torch.int32))
+    return hit, culls
+
+
 def dense_hit(geom: Geometry, o_w, d_w, limit, dense: DenseLayout) -> Hit:
     """Closest hit of each ray (o_w, d_w (B, 3)) under its limit (B,) by
     the dense search. CPU tensors: the plain version. CUDA tensors: the
@@ -227,13 +545,20 @@ def dense_hit(geom: Geometry, o_w, d_w, limit, dense: DenseLayout) -> Hit:
     if o_w.device.type == "cpu":
         return dense_hit_plain(geom, dense, o_w, d_w, limit)
     B = o_w.shape[0]
-    P, I = dense.table.shape[0], dense.plan.shape[0]
+    P, I = dense.leaf_table.shape[0], dense.plan.shape[0]
+    M = dense.mesh_index.shape[0]
     check = cuda_build.check_tensor
     check(o_w, "o_w", torch.float32, (B, 3))
     check(d_w, "d_w", torch.float32, (B, 3))
     check(limit, "limit", torch.float32, (B,))
-    check(dense.table, "table", torch.float32, (P, 16), align=16)
+    check(dense.leaf_table, "leaf_table", torch.float32, (P, 16), align=16)
+    check(dense.leaf_ids, "leaf_ids", torch.int32, (P,))
     check(dense.plan, "plan", torch.int32, (I, 4), align=16)
+    check(dense.mesh_index, "mesh_index", torch.int32, (M, 2), align=8)
+    check(dense.root_box, "root_box", torch.float32, (M, 8), align=16)
+    for name in ("block_box", "group_box"):
+        box = getattr(dense, name)
+        check(box, name, torch.float32, (box.shape[0], 8), align=16)
     for name in ("inst_Ainv", "inst_offset", "sph_radius"):
         check(getattr(geom, name), name, torch.float32)
     dev = o_w.device
@@ -243,13 +568,17 @@ def dense_hit(geom: Geometry, o_w, d_w, limit, dense: DenseLayout) -> Hit:
     if B == 0:
         return Hit(t=t, prim=prim, inst=inst)
     fn = cuda_build.function("dense_hit", "craytpu_dense_hit",
-                             "pppippi" + "p" * 7)
+                             "pppi" + "ppp" + "i" + "p" * 7 + "fff" + "p" * 4)
+    tables = (dense.leaf_table, dense.leaf_ids, dense.plan)
+    boxes = (dense.mesh_index, dense.root_box, dense.block_box,
+             dense.group_box, geom.inst_Ainv, geom.inst_offset,
+             geom.sph_radius)
     cuda_build.launch(
         "dense_hit", fn, o_w.data_ptr(), d_w.data_ptr(), limit.data_ptr(),
-        B, dense.table.data_ptr(), dense.plan.data_ptr(), I,
-        geom.inst_Ainv.data_ptr(), geom.inst_offset.data_ptr(),
-        geom.sph_radius.data_ptr(), t.data_ptr(), prim.data_ptr(),
-        inst.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, size=B)
+        B, *(x.data_ptr() for x in tables), I,
+        *(x.data_ptr() for x in boxes), MARGIN_BOX, MARGIN_REL, MARGIN_ABS,
+        t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, size=B)
     dense_hit.launches += 1
     return Hit(t=t, prim=prim, inst=inst)
 

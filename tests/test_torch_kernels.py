@@ -20,6 +20,10 @@ from craytpu_torch.ops import vecmath as vm
 from craytpu_torch.scene.compile import compile_scene
 from craytpu_torch.scene.device import INST_SPHERE
 from craytpu_torch.scene.sceneloader import load_scene_from_file
+from tests.torch_dense_rays import (DUPLICATES, FLAT_INSTANCES, aimed_rays,
+                                    face_plane_rays, flat_rays,
+                                    near_plane_rays, tangent_rays,
+                                    tie_scene)
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
@@ -241,6 +245,84 @@ def test_dense_hit_kernel_refuses_bad_input(scene):
         dx.dense_hit(geom, o.double().cuda(), d.cuda(), limit, dense)
     with pytest.raises(ValueError):  # the table on the wrong device
         dx.dense_hit(geom, o.cuda(), d.cuda(), limit, scene.dense)
+
+
+def check_dense_variant(cs, o, d, limit, fast, monkeypatch):
+    """K3 against its plain version on (o, d, limit) in the exact variant
+    (the plain version on the CPU) or the fast one (both on the card);
+    returns the plain result."""
+    if not fast:
+        return check_dense_hit(cs, o, d, limit)
+    monkeypatch.setattr(vm, "_FASTMATH", True)
+    geom = cs.geom.to("cuda")
+    dense = dx.build_dense(geom, cs.n_instances)
+    o, d, limit = o.cuda(), d.cuda(), limit.cuda()
+    got = dx.dense_hit(geom, o, d, limit, dense)
+    want = dx.dense_hit_plain(geom, dense, o, d, limit)
+    torch.cuda.synchronize()
+    assert ("dense_hit", True) in cuda_build._LIBS
+    assert torch.equal(got.inst, want.inst)
+    assert torch.equal(got.prim, want.prim)
+    assert_bits(got.t, want.t, "t")
+    return want
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_dense_hit_kernel_on_grazing_rays(scene, fast, monkeypatch):
+    """Rays aimed at triangle edges, vertices and group-box faces (the
+    cull's margins), every 9th lane dead; on stress_instances a search
+    over 64 mesh instances. Bit-equal in both variants."""
+    o, d = (torch.from_numpy(x) for x in aimed_rays(
+        scene, np.random.default_rng(41), 3000))
+    limit = torch.where(torch.arange(3000) % 9 == 4, 0.0, trv.FLT_MAX)
+    want = check_dense_variant(scene, o, d, limit, fast, monkeypatch)
+    assert (want.prim >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_dense_hit_kernel_on_tangent_rays(fast, monkeypatch):
+    """stress_highpoly's grazing rays: tangent to the sphere near its
+    poles (slivers, boxes with F > 1) and along its silhouette, and
+    through slivers at THETA to 4 THETA off their plane, every 9th lane
+    dead. Bit-equal in both variants."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cs = compile_scene(load_scene_from_file(
+        os.path.join(ASSETS, "stress_highpoly.json"),
+        {"width": 32, "height": 24}), "cpu")
+    rng = np.random.default_rng(43)
+    rays = [tangent_rays(cs, rng, 1000, "poles"),
+            tangent_rays(cs, rng, 1000, "silhouette"),
+            near_plane_rays(cs, rng, 1000, dx.THETA, 4 * dx.THETA)]
+    o = torch.from_numpy(np.concatenate([r[0] for r in rays]))
+    d = torch.from_numpy(np.concatenate([r[1] for r in rays]))
+    limit = torch.where(torch.arange(3000) % 9 == 4, 0.0, trv.FLT_MAX)
+    want = check_dense_variant(cs, o, d, limit, fast, monkeypatch)
+    assert (want.prim >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_dense_hit_kernel_on_ties(tmp_path, fast, monkeypatch):
+    """The tie scene (a grid mesh with duplicate triangles, two instances
+    at one place; a flat grid twice, one cell apart): equal t across
+    instances, between duplicates and on shared edges, and rays in
+    box-face planes. Bit-equal in both
+    variants; the first instance and the original triangles win."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cs = tie_scene(tmp_path)
+    rng = np.random.default_rng(42)
+    o, d = aimed_rays(cs, rng, 2000)
+    o2, d2 = face_plane_rays(cs, rng, 700)
+    o3, d3 = flat_rays(rng, 300)
+    o = torch.from_numpy(np.concatenate([o, o2, o3]))
+    d = torch.from_numpy(np.concatenate([d, d2, d3]))
+    want = check_dense_variant(cs, o, d, torch.full((3000,), trv.FLT_MAX),
+                               fast, monkeypatch)
+    assert (want.inst == 0).any() and not (want.inst == 1).any()
+    assert (want.inst[-300:] == FLAT_INSTANCES[0]).all()
+    assert not ((want.prim >= DUPLICATES[0][0])
+                & (want.prim <= DUPLICATES[-1][0])).any()
 
 
 @pytest.mark.parametrize("kernel", ["closest_hit", "hitrec", "dense_hit"])
