@@ -23,7 +23,13 @@ Phases (any failure exits non-zero and prints no result line):
                version on the card (on the CPU it would take minutes),
                with its cull's counters from the plain cull model
                (dense_cull_counts) and two bounds: the culled search's
-               (the row's) and the full search's.
+               (the row's) and the full search's; then every lane of two
+               grazing batches (graze_batch: rays at 0 to 2^-5 rad off
+               a triangle's plane, through it and beside it, near and
+               far, on stress_highpoly and on a tilted floor whose
+               in-plane rays only rounding hits). Each bound is the
+               larger of the bytes over the HBM rate and the f32
+               operations over the f32 lane rate (-fmad=false).
   3. golden  — stress_highpoly and stress_instances at 80x50, 4 spp,
                through the kernels, against goldens/*_80_4.png at the
                thresholds of craytpu_torch/utils/golden.py.
@@ -160,7 +166,8 @@ Phases (any failure exits non-zero and prints no result line):
                bit-equal to its plain version on every lane of that
                launch and on a 16,384-lane launch of its first lanes;
                the cull's counters and both bounds on every 16th block
-               of 256 lanes, scaled by 16. Both
+               of 256 lanes, scaled by 16; every lane of a grazing batch
+               of stress_highpoly. Both
                stress goldens at 80x50, 4 spp, per pass (render) and
                persistent (make_renderer), K3 launched and K2 not. A
                1-spp persistent 1080p frame picks the largest spp of {4,
@@ -182,9 +189,11 @@ Phases (any failure exits non-zero and prints no result line):
                exact, fast, fast, exact, each timing one frame after a
                warm-up; the first fast one also holds the fast variant
                of K1, K2 and K3 against its fast plain version on the
-               card at phase 2's shapes (bit-equal, or the phase fails),
-               times them, and prints both stress goldens at 80x50, 4
-               spp (not gated: fast math is not golden-exact). Then K1's
+               card at phase 2's shapes and K3 on its grazing batches
+               (bit-equal, or the phase fails), times them, and prints
+               both stress goldens at 80x50, 4 spp (not gated: fast math
+               is not golden-exact); each fast bound scales the exact
+               operation count by the variants' f32 SASS instructions. Then K1's
                records against the plain version's (plain_records swaps
                the record function for those frames; the port's
                CRAYTPU_HITREC=xla maps to K1): paths/s and K1's launches
@@ -216,7 +225,9 @@ F32_OPS_PER_S = 67e12
 # f32 operations (mul/add/sub/div/sqrt, counted from csrc/detmath.cuh and
 # the kernels) per unit of work: K2 per inner-node visit (two slab tests),
 # per triangle test, per sphere test (with its instance transform); K1 per
-# lane (the whole record)
+# lane (the whole record). Every kernel is built with -fmad=false, so each
+# of these runs as one instruction at the f32 lane rate
+# (F32_LANE_OPS_PER_S below), as K3's do.
 K2_OPS_INNER, K2_OPS_TRI, K2_OPS_SPHERE = 24, 311, 619
 K1_OPS_LANE = 1851
 # K1 bytes per lane: 7 ray floats and 2 ids in, 16 record floats out; the
@@ -230,12 +241,15 @@ K1_BYTES_TRI_ROW, K1_BYTES_INST_ROW = 32 * 4, 28 * 4
 # and t to be rejected on its t: K3_OPS_T. Only a pair whose t passes 0
 # <= t <= the ray's final best needs u*det and v*det (11 each), u, v and
 # u + v to be decided: K3_OPS_UV more. A box test (box_keep) costs
-# K3_OPS_BOX. A sphere instance costs a K2 sphere test. The full search's
-# bound counts every live pair (K3 before its cull); the culled bound
-# counts the box tests a lane makes (its root box, every superblock box
-# of an instance whose root it keeps, the group boxes of the superblocks
-# it votes for) and the pairs of the groups it votes for.
-K3_OPS_T, K3_OPS_UV, K3_OPS_BOX = 13, 25, 31
+# K3_OPS_SLAB for its slab test, and K3_OPS_PLANE more for its plane test
+# where the slab test skips the box (counted only for the boxes the lane
+# skips: a box the lane keeps may have taken either). A sphere instance
+# costs a K2 sphere test. The full search's bound counts every live pair
+# (K3 before its cull); the culled bound counts the box tests a lane
+# makes (its root box, every superblock box of an instance whose root it
+# keeps, the group boxes of the superblocks it votes for) and the pairs
+# of the groups it votes for.
+K3_OPS_T, K3_OPS_UV, K3_OPS_SLAB, K3_OPS_PLANE = 13, 25, 31, 56
 F32_LANE_OPS_PER_S = F32_OPS_PER_S / 2
 # the main path's frame
 W, H, SPP = 1920, 1080, 4
@@ -438,7 +452,7 @@ def phase_kernels(torch) -> dict:
     n_tris = int(torch.unique(torch.cat(counts["tri_ids"])).numel())
     nbytes = B2 * (7 + 3) * 4 + n_nodes * 32 + n_tris * (48 + 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / F32_LANE_OPS_PER_S * 1e3
     out["closest_hit"] = dict(
         name="closest_hit", ok=True, route="cuda",
         source="craytpu_torch/csrc/closest_hit.cu",
@@ -446,14 +460,15 @@ def phase_kernels(torch) -> dict:
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None)
+        library_ms=None, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
     print(f"K2 closest_hit: B={B2} hits={hits} bit-equal to the plain "
           f"version (plain on CPU {plain_cpu_s:.1f} s); work: "
           f"{counts['inner']} inner visits, {counts['tri']} triangle tests, "
           f"{counts['sphere']} sphere tests, {n_nodes} nodes and {n_tris} "
           f"triangles read -> {ops:.3e} f32 ops, {nbytes / 1e6:.2f} MB; "
           f"kernel {ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound "
-          f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+          f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations "
+          f"{t_ops:.4f})", flush=True)
 
     # ---- K2 on the 1080p frame's first primary batch (pass 0 of 4):
     # timed on all 2^20 lanes, checked on every 16th lane
@@ -493,7 +508,7 @@ def phase_kernels(torch) -> dict:
     nbytes = (B1 * K1_BYTES_LANE + n_trows * K1_BYTES_TRI_ROW
               + n_irows * K1_BYTES_INST_ROW)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = B1 * K1_OPS_LANE / F32_OPS_PER_S * 1e3
+    t_ops = B1 * K1_OPS_LANE / F32_LANE_OPS_PER_S * 1e3
     out["hitrec"] = dict(
         name="hitrec", ok=True, route="cuda",
         source="craytpu_torch/csrc/hitrec.cu",
@@ -501,17 +516,29 @@ def phase_kernels(torch) -> dict:
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None)
+        library_ms=None, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
     print(f"K1 hitrec: B={B1} bit-equal to the plain version; work: "
           f"{n_trows} tri_wide and {n_irows} inst_wide rows read, "
           f"{nbytes / 1e6:.2f} MB, {B1 * K1_OPS_LANE:.3e} f32 ops; kernel "
           f"{ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound "
-          f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+          f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations "
+          f"{t_ops:.4f})", flush=True)
 
     # ---- K3 (the dense search) on K2's 2^16 mixed rays, against its
-    # plain version on the card (on the CPU it would take minutes)
+    # plain version on the card (on the CPU it would take minutes); then on
+    # rays that graze the planes of its triangles, here and on a tilted
+    # floor
     out["dense_hit"] = check_dense_kernel(torch, geom, cs_dev.dense, oc,
                                           dc, lc)
+    check_graze(torch, cs_dev, *graze_batch(cs_cpu, 20261),
+                "stress_highpoly")
+    import pathlib
+    import tempfile
+    from tests.torch_dense_rays import floor_scene
+    floor_cpu = floor_scene(pathlib.Path(tempfile.mkdtemp()))
+    floor = floor_scene(pathlib.Path(tempfile.mkdtemp()), "cuda")
+    check_graze(torch, floor, *graze_batch(floor_cpu, 20262, floor=True),
+                "tilted floor")
     return out
 
 
@@ -616,11 +643,13 @@ def dense_bound(dense, live: int, B: int, cull: dict,
                 culled: bool) -> tuple:
     """K3's bound for B rays of which `live` are live, from the counts
     `cull` of dense_cull_counts: (bound ms, what bounds it, live
-    ray-triangle pairs). Operations: the full search's (K3_OPS_T every
-    live pair, K3_OPS_UV each that needs u and v, "uv_all"), or if
-    `culled` the culled search's (K3_OPS_BOX a box test,
-    K3_OPS_T a pair of the groups the lanes vote for and K3_OPS_UV each
-    of those whose t passes, "uv_lane"); both a K2 sphere test a live ray
+    ray-triangle pairs, {"bound_ops_ms", "bound_bytes_ms"}). Operations:
+    the full search's (K3_OPS_T every live pair, K3_OPS_UV each that
+    needs u and v, "uv_all"), or if
+    `culled` the culled search's (K3_OPS_SLAB a box test and K3_OPS_PLANE
+    more a box test the lane skips, K3_OPS_T a pair of the groups the
+    lanes vote for and K3_OPS_UV each of those whose t passes,
+    "uv_lane"); both a K2 sphere test a live ray
     and sphere instance, at the f32 lane rate; bytes: each ray's 7 input
     and 3 output words, the table and the plan once (and with `cull` the
     row ids and the boxes)."""
@@ -635,8 +664,10 @@ def dense_bound(dense, live: int, B: int, cull: dict,
     if not culled:
         ops = pairs * K3_OPS_T
     else:
-        ops = (K3_OPS_BOX * (cull["root_tests"] + cull["block_tests"]
-                             + cull["group_tests"])
+        tests = (cull["root_tests"] + cull["block_tests"]
+                 + cull["group_tests"])
+        kept = cull["root_kept"] + cull["block_votes"] + cull["group_votes"]
+        ops = (K3_OPS_SLAB * tests + K3_OPS_PLANE * (tests - kept)
                + K3_OPS_T * cull["pairs_lane"])
         uv_pairs = cull["uv_lane"]
         nbytes += 4 * (dense.leaf_ids.numel() + dense.root_box.numel()
@@ -645,7 +676,8 @@ def dense_bound(dense, live: int, B: int, cull: dict,
     t_ops = ops / F32_LANE_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", pairs)
+            else "bytes", pairs, {"bound_ops_ms": t_ops,
+                                  "bound_bytes_ms": t_bytes})
 
 
 def check_dense_kernel(torch, geom, dense, o, d, limit) -> dict:
@@ -670,8 +702,8 @@ def check_dense_kernel(torch, geom, dense, o, d, limit) -> dict:
     live = int((limit > 0).sum())
     cull = dense_cull_counts(torch, geom, dense, o, d, limit)
     uv = cull["uv_all"]
-    full, _, pairs = dense_bound(dense, live, B, cull, False)
-    bound, by, _ = dense_bound(dense, live, B, cull, True)
+    full, _, pairs, _ = dense_bound(dense, live, B, cull, False)
+    bound, by, _, parts = dense_bound(dense, live, B, cull, True)
     print(f"K3 dense_hit: B={B} ({live} live) bit-equal to the plain "
           f"version; {pairs:.3e} live ray-triangle pairs, {uv:.3e} of them "
           f"need u and v; kernel {ms:.4f} ms, plain on card "
@@ -684,7 +716,50 @@ def check_dense_kernel(torch, geom, dense, o, d, limit) -> dict:
                 source="craytpu_torch/csrc/dense_hit.cu",
                 replaces="craytpu/ops/dense_isect.py:120", launches=0,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, **parts)
+
+
+def graze_batch(cs_cpu, seed: int, floor: bool = False,
+                B: int = 1024) -> tuple:
+    """Rays that graze the planes of the first mesh's triangles
+    (tests/torch_dense_rays.py::graze_rays): at 0, 1e-8, 1e-6, 1e-4 and
+    1e-3 rad and up to THETA off a triangle's plane, through it and beside
+    it, from 0.2-3 and 50-400 units; B a kind, on the 2% slivers and on
+    any triangle (with `floor`, the tilted floor's triangles and, B more,
+    rays in its plane beside it, which only rounding hits). CPU tensors
+    (o, d, limit), every 9th lane dead."""
+    import torch
+    from tests.torch_dense_rays import floor_edge_rays, graze_rays
+    rng = np.random.default_rng(seed)
+    parts = [graze_rays(cs_cpu, rng, B, where, dist, share)
+             for share in ((1.0,) if floor else (0.02, 1.0))
+             for where in ("through", "beside")
+             for dist in ((0.2, 3.0), (50.0, 400.0))]
+    if floor:
+        parts.append(floor_edge_rays(rng, B, (0.2, 3.0)))
+    o = torch.from_numpy(np.concatenate([p[0] for p in parts]))
+    d = torch.from_numpy(np.concatenate([p[1] for p in parts]))
+    from craytpu_torch.ops import traverse as trv
+    limit = torch.where(torch.arange(o.shape[0]) % 9 == 4, 0.0, trv.FLT_MAX)
+    return o, d, limit
+
+
+def check_graze(torch, cs, o, d, limit, what: str) -> None:
+    """K3 on the card (cs on CUDA) against its plain version on the card,
+    bit for bit on every lane of the grazing rays (o, d, limit) (CPU
+    tensors), timed."""
+    from craytpu_torch.ops import dense_isect as dx
+    o, d, limit = o.cuda(), d.cuda(), limit.cuda()
+    got = dx.dense_hit(cs.geom, o, d, limit, cs.dense)
+    want = dx.dense_hit_plain(cs.geom, cs.dense, o, d, limit)
+    for field in ("inst", "prim", "t"):
+        bit_diff(getattr(got, field), getattr(want, field),
+                 f"K3 {field} on the grazing rays of {what}")
+    ms = cuda_ms(lambda: dx.dense_hit(cs.geom, o, d, limit, cs.dense), 3)
+    print(f"K3 grazing rays of {what}: B={o.shape[0]} "
+          f"({int((limit > 0).sum())} live) bit-equal to the plain version "
+          f"on every lane; {int((want.inst >= 0).sum())} hits; kernel "
+          f"{ms:.3f} ms", flush=True)
 
 
 def phase_golden(torch) -> None:
@@ -2562,8 +2637,8 @@ def phase_dense(torch, kernels: dict) -> None:
     recs = [hr.hitrec_record(cs.tri_wide, cs.inst_wide, o_b, d_b, h.t,
                              h.prim, h.inst, cs.sphere_uv) for h in (k2, k3)]
     bit_diff(recs[1][same], recs[0][same], "K1 records of K3's winners")
-    full, _, pairs = dense_bound(cs.dense, T, T, cull, False)
-    bound, by, _ = dense_bound(cs.dense, T, T, cull, True)
+    full, _, pairs, _ = dense_bound(cs.dense, T, T, cull, False)
+    bound, by, _, _ = dense_bound(cs.dense, T, T, cull, True)
     kernels["dense_hit"].update(ms_primary_batch=ms_b)
     print(f"dense: K3 on the 1080p primary batch B={T}: {ms_b:.3f} ms "
           f"({pairs:.3e} pairs, about {uv:.3e} of them need u and v; bound "
@@ -2581,6 +2656,12 @@ def phase_dense(torch, kernels: dict) -> None:
     if n_hm or frac < 0.999:
         fail("dense: K3's winners against K2's on the primary batch")
     del o_b, d_b, lim_b, k2, k3, recs, same, sub
+    # ---- K3 on rays that graze the planes of the frame's triangles
+    cs_cpu = compile_scene(load("stress_highpoly", {"width": 32,
+                                                    "height": 24}), "cpu")
+    check_graze(torch, cs, *graze_batch(cs_cpu, 20263),
+                "stress_highpoly (phase 12)")
+    del cs_cpu
 
     walk = make_renderer(cs)                      # built before the switch
     prev = os.environ.get("CRAYTPU_TRAVERSAL")
@@ -2766,6 +2847,16 @@ def fast_kernel_checks(torch) -> dict:
           lambda: dx.dense_hit(geom, o, d, limit, cs_dev.dense),
           lambda: dx.dense_hit_plain(geom, cs_dev.dense, o, d, limit),
           ("inst", "prim", "t"))
+    # the fast K3 on phase 2's grazing rays, every lane
+    import pathlib
+    import tempfile
+    check_graze(torch, cs_dev, *graze_batch(cs_cpu, 20261),
+                "stress_highpoly (fast)")
+    from tests.torch_dense_rays import floor_scene
+    floor_cpu = floor_scene(pathlib.Path(tempfile.mkdtemp()))
+    floor = floor_scene(pathlib.Path(tempfile.mkdtemp()), "cuda")
+    check_graze(torch, floor, *graze_batch(floor_cpu, 20262, floor=True),
+                "tilted floor (fast)")
     return out
 
 
@@ -2879,14 +2970,27 @@ def phase_switches(torch, kernels: dict) -> None:
     children = [run_switch_child(f, checks=(f and i == 1))
                 for i, f in enumerate((False, True, True, False))]
     fk = children[1]["kernels"]
+    from craytpu_torch.ops import cuda_build
     for name, k in fk.items():
-        kernels[name]["ms_fast"] = k["ms"]
-        kernels[name]["plain_ms_fast"] = k["plain_ms"]
+        kn = kernels[name]
+        kn["ms_fast"] = k["ms"]
+        kn["plain_ms_fast"] = k["plain_ms"]
+        # the fast variant's operations: the exact count scaled by the two
+        # variants' static f32 SASS instructions (the work is the same,
+        # each primitive cheaper); its bytes are the exact variant's
+        f32 = [sum(u.get("f32", 0) for fn, u in cuda_build.kernel_usage(
+            name, fast).items() if f"{name}_kernel" in fn)
+            for fast in (False, True)]
+        kn["bound_ms_fast"] = max(kn["bound_bytes_ms"],
+                                  kn["bound_ops_ms"] * f32[1] / f32[0])
         print(f"switches fastmath: {name} fast variant bit-equal to its "
               f"fast plain version; {k['ms']:.4f} ms (exact variant, phase "
-              f"2: {kernels[name]['ms']:.4f} ms; fast/exact "
-              f"{k['ms'] / kernels[name]['ms']:.3f}), plain on card "
-              f"{k['plain_ms']:.2f} ms", flush=True)
+              f"2: {kn['ms']:.4f} ms; fast/exact "
+              f"{k['ms'] / kn['ms']:.3f}), plain on card "
+              f"{k['plain_ms']:.2f} ms; bound {kn['bound_ms_fast']:.4f} ms "
+              f"(f32 SASS instructions fast/exact {f32[1]}/{f32[0]}; "
+              f"{100 * kn['bound_ms_fast'] / k['ms']:.1f}% of it)",
+              flush=True)
     for name, (ok, within, mean_abs) in children[1]["golden"].items():
         print(f"switches fastmath golden {name} 80x50 4spp (printed, not "
               f"gated): within1lsb={within:.5f} mean_abs={mean_abs:.4f} "

@@ -23,7 +23,11 @@
 //     leaf_ids), cut into groups of GROUP = 32 rows and superblocks of
 //     SUPER = 8 groups (TILE = 256 rows, one shared-memory tile), each
 //     with its mesh-space box, the mesh with its root box, so that a box
-//     holds triangles that lie together;
+//     holds triangles that lie together; within each run of SUPER
+//     superblocks the rows are regrouped into superblocks, and within
+//     each superblock into groups, by normal or by place
+//     (ops/dense_isect.py::leaf_groups), so that the plane test below
+//     sees narrow cones;
 //   - a ray that cannot use the root box skips the instance (the block
 //     skips it when no lane can, __syncthreads_or); each lane votes on
 //     each superblock box of a pass of SB_CHUNK superblocks, the votes of
@@ -88,19 +92,63 @@
 // pair the plain test accepts at or below the best with its ray at least
 // THETA off the triangle's plane.
 //
-// A ray within THETA of a triangle's plane is not covered. A larger F
-// would cover rays closer to it (the margins grow as 1 / sin(alpha)), but
-// no margin covers them all: for a ray in the plane, det, u*det, v*det
-// and t*det are all rounding errors, so the plain test may accept the
-// pair (rarely: all four must fall the right way) with t anywhere on the
-// ray. Only a bound on every triangle's normal could keep such a box for
-// such a ray (a normal cone a box), and on a displaced mesh the normals
-// of one group spread so widely that it would keep a large share of the
-// groups for every ray that misses (scripts/dense_cull_band.py measures
-// it).
+// The slab test alone does not cover a pair with |det| < rho A L^2,
+// rho = RHO / F: the margins grow as 1 / rho, and for a ray in the plane
+// det, u*det, v*det and t*det are all rounding errors, so the plain test
+// may accept the pair (rarely: all four must fall the right way) with t
+// anywhere on the ray. Such a pair has a ray line that lies nearly in
+// the triangle's plane, wherever the triangle is, and the plane test
+// keeps every box that may hold one:
 //
-// The box test (box_keep, and ops/dense_isect.py::box_keep operation for
-// operation) rounds to nearest and encloses instead: the margins are
+// Let r = v0 - o and M = r x d, the moment of the ray's line about v0
+// (exact). Then u*det = d.(r x e2) = -e2.M and v*det = -e1.M exactly,
+// and for the part M_p of M in the plane (M_p = M - (M.n^) n^),
+// |M_p| |n| = |M_p x n| = |e1 (M.e2) - e2 (M.e1)| <= sqrt(3) L (|u*det| +
+// |v*det|). An accepted pair has u, v >= 0 and u + v <= 1 as computed,
+// so |ud_c|, |vd_c| <= |det_c| (1 + 3.02u) (the roundings of 1/det, of
+// the products and of u + v; an underflow only shrinks them, an overflow
+// of 1/det rejects the pair), and with the error bounds above
+//     |u*det|, |v*det| <= (|det| + E_det)(1 + 3.02u) + E_ud.
+// With |det| < rho A L^2, rho / mu <= THETA (F >= RHO / (THETA mu_min):
+// rho = RHO / F <= THETA mu_min), 1 / mu <= 1 / mu_min <= 2F, L <= L_B
+// (the box's largest extent) and L <= 2V:
+//     |M_p| <= 2 sqrt(3) A ((rho + 30.3u) L + 49u (V + O)) / mu
+//           <= A (K_T L_B + C_W F (V + O)),
+//     K_T = 2 sqrt(3) THETA = 0.10826,  C_W = 4 sqrt(3) 109.6 u <= 760u.
+// So the line's plane through v0 has its normal M / |M| within |M_p| /
+// |M| of the triangle's normal n^ (up to sign). Each box carries the cone
+// [c, S] of its triangles' unit normals (ops/dense_isect.py::box_cone,
+// in float64: S >= max |n^_k - c^| over its triangles, each n^_k's sign
+// turned toward c^ = c / |c|, plus its own float64 error and 2^-20,
+// rounded up). For the box's centre p = (lo + hi) * 0.5 (as computed;
+// every point of the box lies within R = K_R L_B + E_V V of it, K_R =
+// 0.8661 > sqrt(3) / 2 with the rounding of L_B, E_V = 2^-21 > 1.75u for
+// the centre's roundings) and any vertex v0 of the box, |M(v0) - M(p)|
+// = |(v0 - p) x d| <= R |d|; and for a normal n^ within S of c^,
+//     |M(v0) x n^| >= |M(p) x c^| - S |M(p)| - R |d|.
+// The pair is possible only if that is at most A (K_T L_B + C_W F (V +
+// O)). The kernel computes x = p - o, X = max |x_i|, M = x x d and q = M x
+// c in round to nearest: x's and M's roundings move M by at most 7u X
+// |d| (E_X X |d| below, E_X = 2^-18); q's, by at most 5.2u |M|, which
+// the 2^-20 in S covers; |c| differs from 1 by at most 2^-23. The box is
+// culled by the plane test only if
+//     |q| > (S |M| + T) * SLACK,
+//     T = |d| (K_R L_B + E_V V + E_X X) + A (K_T L_B + C_W (V + O) F),
+// SLACK = 1 + 2^-16 covering the roundings of the sums, products and
+// roots of the test (each a few u relative, every term positive). A box
+// is kept if the slab test or the plane test keeps it, so a box that
+// holds a pair the plain test accepts at or below the best is kept for
+// every ray: with |det| >= rho A L^2 by the slab test, below it by the
+// plane test. There is no band of rays the guarantee leaves out.
+//
+// What it costs: on a displaced mesh the normals of one group spread
+// widely, so the plane test keeps many boxes whose slabs the ray misses:
+// a ray's line lies nearly in some plane of a box's cone, within its
+// reach, far more often than in the plane of one of its triangles
+// (scripts/dense_cull_band.py prints S and each test's keep rate).
+//
+// The slab test (box_keep, and ops/dense_isect.py::slab_keep operation
+// for operation) rounds to nearest and encloses instead: the margins are
 // passed rounded up with room for their own roundings (MARGIN_BOX =
 // 1.01 (K_BOX + 2) u, MARGIN_REL = (K_REL + 4) u, MARGIN_ABS = 1.01
 // K_ABS u; the few roundings of (O + V) F and of the products with it
@@ -110,7 +158,9 @@
 // WIDEN = 2^-20 = 16u relatively and FLT_MIN absolutely (subnormal
 // products), the exit likewise; fmaxf/fminf drop the NaN of a d_i = 0
 // axis whose origin lies on a slab plane (that axis does not bound the
-// ray), and a NaN comparison keeps the box. Dead lanes vote for nothing.
+// ray), and a NaN comparison keeps the box. The plane test
+// (ops/dense_isect.py::plane_keep) likewise; roots correctly rounded.
+// Dead lanes vote for nothing.
 #include <cuda_runtime.h>
 
 #include "detmath.cuh"
@@ -129,42 +179,94 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float WIDEN_DN = 1.0f - 0x1p-20f;
 constexpr float WIDEN_UP = 1.0f + 0x1p-20f;
 constexpr float FLT_MIN_F = 0x1p-126f;
+constexpr int BOX = 3;                  // float4s a box
 
+// the slab test's margins and the plane test's constants, as
+// ops/dense_isect.py passes them (the header derives them)
 struct Margins {
   float box, rel, abs;  // MARGIN_BOX, MARGIN_REL, MARGIN_ABS
+  float kt, cw, kr, ev, ex, slack;  // K_T, C_W, K_R, E_V, E_X, SLACK
 };
 
 // the box test's terms of one instance-space ray
 struct CullRay {
-  float o[3], inv[3];
+  float o[3], d[3], inv[3];
   bool neg[3];
-  float O, kA;
+  float O, kA, A, dn;
 };
+
+__device__ __forceinline__ float norm3(float a, float b, float c) {
+  return __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                              __fmul_rn(c, c)));
+}
+
+// a x b, each component one difference of two products
+__device__ __forceinline__ void cross3(const float a[3], const float b[3],
+                                       float out[3]) {
+  out[0] = __fsub_rn(__fmul_rn(a[1], b[2]), __fmul_rn(a[2], b[1]));
+  out[1] = __fsub_rn(__fmul_rn(a[2], b[0]), __fmul_rn(a[0], b[2]));
+  out[2] = __fsub_rn(__fmul_rn(a[0], b[1]), __fmul_rn(a[1], b[0]));
+}
 
 __device__ __forceinline__ void cull_ray(const float o[3], const float d[3],
                                          const Margins& mg, CullRay& c) {
   float A = 0.0f;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
     c.o[a] = o[a];
+    c.d[a] = d[a];
     c.inv[a] = __frcp_rn(d[a]);
     c.neg[a] = signbit(d[a]);
     A = a ? fmaxf(A, fabsf(d[a])) : fabsf(d[a]);
   }
   c.O = fmaxf(fmaxf(fabsf(o[0]), fabsf(o[1])), fabsf(o[2]));
   c.kA = __fdiv_rn(mg.abs, A);
+  c.A = A;
+  c.dn = norm3(d[0], d[1], d[2]);
 }
 
-// whether the ray may use the box [lo.xyz, V] [hi.xyz, F] at its running
-// best (see the header); ops/dense_isect.py::box_keep
-__device__ __forceinline__ bool box_keep(const float4 lo, const float4 hi,
-                                         const CullRay& c, float best,
-                                         const Margins& mg) {
-  const float s = __fmul_rn(__fadd_rn(c.O, lo.w), hi.w);
+// the plane test of the box [lo.xyz, V] [hi.xyz, F] [cone.xyz, S] (see the
+// header); ops/dense_isect.py::plane_keep. sf = (O + V) * F.
+__device__ __forceinline__ bool plane_keep(const float4 lo, const float4 hi,
+                                           const float4 cone,
+                                           const CullRay& c, float sf,
+                                           const Margins& mg) {
+  const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
+  const float cv[3] = {cone.x, cone.y, cone.z};
+  float x[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    x[a] = __fsub_rn(__fmul_rn(__fadd_rn(l[a], h[a]), 0.5f), c.o[a]);
+  }
+  const float X = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fabsf(x[2]));
+  float M[3], q[3];
+  cross3(x, c.d, M);
+  cross3(M, cv, q);
+  const float LB = fmaxf(
+      fmaxf(__fsub_rn(h[0], l[0]), __fsub_rn(h[1], l[1])),
+      __fsub_rn(h[2], l[2]));
+  const float reach =
+      __fadd_rn(__fmul_rn(mg.kr, LB), __fmul_rn(mg.ev, lo.w));
+  const float T = __fadd_rn(
+      __fmul_rn(c.dn, __fadd_rn(reach, __fmul_rn(mg.ex, X))),
+      __fmul_rn(c.A, __fadd_rn(__fmul_rn(mg.kt, LB), __fmul_rn(mg.cw, sf))));
+  const float rhs = __fmul_rn(
+      __fadd_rn(__fmul_rn(cone.w, norm3(M[0], M[1], M[2])), T), mg.slack);
+  return !(norm3(q[0], q[1], q[2]) > rhs);
+}
+
+// the slab test of the box [lo.xyz, V] [hi.xyz, F] at the ray's running
+// best (see the header); ops/dense_isect.py::slab_keep. s = (O + V) * F.
+__device__ __forceinline__ bool slab_keep(const float4 lo, const float4 hi,
+                                          const CullRay& c, float best,
+                                          const Margins& mg, float& s) {
+  s = __fmul_rn(__fadd_rn(c.O, lo.w), hi.w);
   const float m = __fmul_rn(mg.box, s);
   const float tm = __fmul_rn(c.kA, s);
   const float rel = __fadd_rn(__fmul_rn(mg.rel, hi.w), 1.0f);
   const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
   float en = 0.0f, ex = 0.0f;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float near = c.neg[a] ? __fadd_rn(h[a], m) : __fsub_rn(l[a], m);
     const float far = c.neg[a] ? __fsub_rn(l[a], m) : __fadd_rn(h[a], m);
@@ -177,6 +279,18 @@ __device__ __forceinline__ bool box_keep(const float4 lo, const float4 hi,
   ex = __fadd_rn(__fmul_rn(ex, ex > 0.0f ? WIDEN_UP : WIDEN_DN), FLT_MIN_F);
   const float tlim = __fadd_rn(__fmul_rn(best, rel), tm);
   return !((en > ex) || (en > tlim) || (ex < -tm));
+}
+
+// whether the ray may use the box [lo.xyz, V] [hi.xyz, F] [cone.xyz, S] at
+// its running best: the slab test or the plane test (see the header);
+// ops/dense_isect.py::box_keep
+__device__ __forceinline__ bool box_keep(const float4 lo, const float4 hi,
+                                         const float4 cone,
+                                         const CullRay& c, float best,
+                                         const Margins& mg) {
+  float s;
+  return slab_keep(lo, hi, c, best, mg, s) ||
+         plane_keep(lo, hi, cone, c, s, mg);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -202,14 +316,14 @@ __device__ __forceinline__ void commit() {
 struct Tile {
   float4 rows[TILE * ROW];
   int ids[TILE];
-  float4 boxes[SUPER * 2];
+  float4 boxes[SUPER * BOX];
 };
 
 // the mesh's rows, as the kernel reads them
 struct Mesh {
   const float4* table;  // leaf_table rows of the mesh
   const int* ids;       // their triangle ids
-  const float4* group_box;  // the mesh's group boxes (2 float4s each)
+  const float4* group_box;  // the mesh's group boxes (BOX float4s each)
   int rows;
 };
 
@@ -226,9 +340,9 @@ __device__ __forceinline__ void load_super(Tile& t, const Mesh& mesh,
   }
   if (threadIdx.x < n) cp_async4(t.ids + threadIdx.x, mesh.ids + r0 +
                                  threadIdx.x);
-  if (threadIdx.x < 2 * groups) {
+  if (threadIdx.x < BOX * groups) {
     cp_async16(t.boxes + threadIdx.x,
-               mesh.group_box + static_cast<size_t>(s) * SUPER * 2 +
+               mesh.group_box + static_cast<size_t>(s) * SUPER * BOX +
                    threadIdx.x);
   }
   commit();
@@ -248,22 +362,22 @@ __device__ __forceinline__ int next_voted(const unsigned* need, int after,
 // warp votes for, row by row. Updates (best_t, best_prim, here).
 __device__ __forceinline__ void search_tile(const Tile& t, int n,
                                             const CullRay& c, bool vote,
-                                            const float d[3],
                                             const float w[3],
                                             const Margins& mg, float& best_t,
                                             int& best_prim, bool& here) {
   const int groups = (n + GROUP - 1) / GROUP;
   for (int g = 0; g < groups; ++g) {
     const bool v =
-        vote && box_keep(t.boxes[2 * g], t.boxes[2 * g + 1], c, best_t, mg);
+        vote && box_keep(t.boxes[BOX * g], t.boxes[BOX * g + 1],
+                         t.boxes[BOX * g + 2], c, best_t, mg);
     if (!__any_sync(FULL, v)) continue;
     const int j1 = min(g * GROUP + GROUP, n);
     for (int j = g * GROUP; j < j1; ++j) {
       // [n(3) v0xe2(3) -e2(3) v0xe1(3) -e1(3) n.v0]
       const float4 a = t.rows[ROW * j], e = t.rows[ROW * j + 3];
       const float det = __fadd_rn(
-          __fadd_rn(__fmul_rn(d[0], a.x), __fmul_rn(d[1], a.y)),
-          __fmul_rn(d[2], a.z));
+          __fadd_rn(__fmul_rn(c.d[0], a.x), __fmul_rn(c.d[1], a.y)),
+          __fmul_rn(c.d[2], a.z));
       float td = __fadd_rn(__fmul_rn(c.o[0], -a.x), __fmul_rn(c.o[1], -a.y));
       td = __fadd_rn(td, __fmul_rn(c.o[2], -a.z));
       td = __fadd_rn(td, e.w);
@@ -271,13 +385,13 @@ __device__ __forceinline__ void search_tile(const Tile& t, int n,
       const float tt = __fmul_rn(td, inv);
       if (!(tt >= 0.0f && tt <= best_t)) continue;  // NaN fails too
       const float4 b = t.rows[ROW * j + 1], cc = t.rows[ROW * j + 2];
-      float ud = __fadd_rn(__fmul_rn(d[0], a.w), __fmul_rn(d[1], b.x));
-      ud = __fadd_rn(ud, __fmul_rn(d[2], b.y));
+      float ud = __fadd_rn(__fmul_rn(c.d[0], a.w), __fmul_rn(c.d[1], b.x));
+      ud = __fadd_rn(ud, __fmul_rn(c.d[2], b.y));
       ud = __fadd_rn(ud, __fmul_rn(w[0], b.z));
       ud = __fadd_rn(ud, __fmul_rn(w[1], b.w));
       ud = __fadd_rn(ud, __fmul_rn(w[2], cc.x));
-      float vd = __fadd_rn(__fmul_rn(d[0], cc.y), __fmul_rn(d[1], cc.z));
-      vd = __fadd_rn(vd, __fmul_rn(d[2], cc.w));
+      float vd = __fadd_rn(__fmul_rn(c.d[0], cc.y), __fmul_rn(c.d[1], cc.z));
+      vd = __fadd_rn(vd, __fmul_rn(c.d[2], cc.w));
       vd = __fadd_rn(vd, __fmul_rn(w[0], e.x));
       vd = __fadd_rn(vd, __fmul_rn(w[1], e.y));
       vd = __fadd_rn(vd, __fmul_rn(w[2], e.z));
@@ -307,7 +421,8 @@ __device__ __forceinline__ bool search_mesh(
     int& best_prim) {
   CullRay c;
   cull_ray(o, d, mg, c);
-  const bool vote = live && box_keep(root[0], root[1], c, best_t, mg);
+  const bool vote =
+      live && box_keep(root[0], root[1], root[2], c, best_t, mg);
   if (!__syncthreads_or(vote)) return false;
   float w[3];
   detm::cross(d, o, w);
@@ -322,9 +437,9 @@ __device__ __forceinline__ bool search_mesh(
     if (warp_votes) {
       unsigned bits = 0u;
       for (int s = 0; s < count; ++s) {
-        const float4* b = block_box + 2 * static_cast<size_t>(c0 + s);
-        const bool v = vote && box_keep(__ldg(b), __ldg(b + 1), c, best_t,
-                                        mg);
+        const float4* b = block_box + BOX * static_cast<size_t>(c0 + s);
+        const bool v = vote && box_keep(__ldg(b), __ldg(b + 1), __ldg(b + 2),
+                                        c, best_t, mg);
         if (__any_sync(FULL, v)) bits |= 1u << (s & 31);
         if ((s & 31) == 31 || s == count - 1) {
           if ((threadIdx.x & 31) == 0 && bits) atomicOr(need + (s >> 5),
@@ -349,7 +464,7 @@ __device__ __forceinline__ bool search_mesh(
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
       __syncthreads();
       const int n = min(mesh.rows - (c0 + cur) * TILE, TILE);
-      search_tile(tiles[k & 1], n, c, vote, d, w, mg, best_t, best_prim,
+      search_tile(tiles[k & 1], n, c, vote, w, mg, best_t, best_prim,
                   here);
       __syncthreads();  // this buffer is refilled two superblocks on
       cur = nxt;
@@ -414,9 +529,9 @@ __global__ void __launch_bounds__(THREADS)
       const int2 mi = __ldg(mesh_index + p.w);  // first superblock, group
       const Mesh mesh{leaf_table + static_cast<size_t>(p.y) * ROW,
                       leaf_ids + p.y,
-                      group_box + 2 * static_cast<size_t>(mi.y), p.z};
-      if (search_mesh(tiles, need, mesh, root_box + 2 * p.w,
-                      block_box + 2 * static_cast<size_t>(mi.x), live, o, d,
+                      group_box + BOX * static_cast<size_t>(mi.y), p.z};
+      if (search_mesh(tiles, need, mesh, root_box + BOX * p.w,
+                      block_box + BOX * static_cast<size_t>(mi.x), live, o, d,
                       mg, best_t, best_prim)) {
         best_inst = i;
       }
@@ -436,7 +551,8 @@ extern "C" int craytpu_dense_hit(
     int n_inst, const int* mesh_index, const float* root_box,
     const float* block_box, const float* group_box, const float* inst_Ainv,
     const float* inst_offset, const float* sph_radius, float margin_box,
-    float margin_rel, float margin_abs, float* t_out, int* prim_out,
+    float margin_rel, float margin_abs, float k_t, float c_w, float k_r,
+    float e_v, float e_x, float slack, float* t_out, int* prim_out,
     int* inst_out, void* stream) {
   if (B <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -448,7 +564,9 @@ extern "C" int craytpu_dense_hit(
       reinterpret_cast<const float4*>(root_box),
       reinterpret_cast<const float4*>(block_box),
       reinterpret_cast<const float4*>(group_box), inst_Ainv, inst_offset,
-      sph_radius, Margins{margin_box, margin_rel, margin_abs}, t_out,
-      prim_out, inst_out);
+      sph_radius,
+      Margins{margin_box, margin_rel, margin_abs, k_t, c_w, k_r, e_v, e_x,
+              slack},
+      t_out, prim_out, inst_out);
   return static_cast<int>(cudaGetLastError());
 }

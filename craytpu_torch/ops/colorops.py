@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from craytpu_torch.ops import vecmath as vm
+
 
 def rgba(r, g, b, a=1.0, device=None):
     """One RGBA color as a (4,) f32 tensor."""
@@ -58,6 +60,6 @@ def color_from_srgb(c):
 
 def grayscale_hsp(c):
     """HSP luminance (color.h:41-44); returns scalar brightness."""
-    return torch.sqrt(0.299 * (c[..., 0] * c[..., 0])
-                      + 0.587 * (c[..., 1] * c[..., 1])
-                      + 0.114 * (c[..., 2] * c[..., 2]))
+    return vm.ieee_sqrt(0.299 * (c[..., 0] * c[..., 0])
+                        + 0.587 * (c[..., 1] * c[..., 1])
+                        + 0.114 * (c[..., 2] * c[..., 2]))

@@ -144,9 +144,11 @@ def build_all(names=KERNELS, variants=None) -> float:
 def kernel_usage(name: str, fast: bool = False) -> dict:
     """Per __global__ function of kernel library `name` (built first if
     missing), what ptxas reported: {"registers", "stack_bytes",
-    "spill_stores", "spill_loads", "smem_bytes"}, and "sass", the
-    number of machine instructions in the built function. Keyed by the
-    mangled function name."""
+    "spill_stores", "spill_loads", "smem_bytes"}, "sass", the number of
+    machine instructions in the built function, and "f32", how many of
+    them are f32 arithmetic (FADD, FMUL, FFMA, MUFU: the adds, products
+    and the steps of divisions and roots). Keyed by the mangled function
+    name."""
     build_all((name,), (fast,))
     with open(f"{lib_path(name, fast)}.log", errors="replace") as f:
         log = f.read()
@@ -184,6 +186,9 @@ def kernel_usage(name: str, fast: bool = False) -> dict:
                                          line):
             u = usage.setdefault(fn, {})
             u["sass"] = u.get("sass", 0) + 1
+            if re.search(r"\*/\s+(@!?U?P\w+\s+)?(FADD|FMUL|FFMA|MUFU)\b",
+                         line):
+                u["f32"] = u.get("f32", 0) + 1
     return usage
 
 
@@ -202,7 +207,8 @@ def usage_lines(names=KERNELS, fast: bool = False) -> list[str]:
                 f"{u.get('spill_stores')} B spill stores, "
                 f"{u.get('spill_loads')} B spill loads, "
                 f"{u.get('smem_bytes')} B shared, "
-                f"{u.get('sass')} SASS instructions (static)")
+                f"{u.get('sass')} SASS instructions (static), "
+                f"{u.get('f32', 0)} of them f32 arithmetic")
     return lines
 
 

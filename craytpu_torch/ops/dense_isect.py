@@ -122,10 +122,10 @@ VOTE_CHUNK = 256
 # component, O and A the ray's largest |o_i| and |d_i|, V the box's
 # largest |coordinate|) lies within K_BOX * U * (V + O) of its
 # triangle's box and within t * K_REL * U + K_ABS * U * (V + O) / A of
-# its own t along the ray, the K's taken at rho = RHO. A ray at least
-# THETA off the plane of a triangle of shape mu = |n| / L^2 has rho >=
-# THETA * mu, so each box carries the factor BOX_F = max(1, RHO / (THETA
-# * mu_min)) of its triangles and the kernel scales the K's by it.
+# its own t along the ray, the K's taken at rho = RHO. Each box carries
+# the factor BOX_F = max(1, RHO / (THETA * mu_min)) of its triangles
+# (mu = |n| / L^2 their shapes) and the kernel scales the K's by it, so
+# that they hold at rho = RHO / F.
 U = 2.0 ** -24
 RHO = 2.0 ** -6
 THETA = 2.0 ** -5
@@ -151,7 +151,23 @@ MARGIN_ABS = _f32_up(1.01 * K_ABS * U)
 WIDEN_DN = 1.0 - 2.0 ** -20
 WIDEN_UP = 1.0 + 2.0 ** -20
 FLT_MIN = 2.0 ** -126
-
+# The plane test, for the pairs whose |det| < rho * A * L^2 (the kernel's
+# header derives it): such a pair is accepted only if the moment M = (v0
+# - o) x d of the ray's line about the triangle's vertex v0 lies within
+# A * (K_T * L + C_W * (V + O) * F) of the line of its normal n; the box
+# keeps a ray whose line may do that for a normal in its cone [c, S]
+# (S >= max |n_k - c| of its triangles' unit normals n_k, their signs
+# turned toward c, plus CONE_SLACK) at a vertex in the box, whose
+# centre is (lo + hi) * 0.5 and whose points lie within K_R * L_B + E_V *
+# V of it (L_B the box's largest extent). E_X * max |x_i| covers the
+# roundings of x = centre - o and M, SLACK those of the test's sums.
+K_T = _f32_up(2.0 * 3.0 ** 0.5 * THETA)
+C_W = _f32_up(760 * U)
+K_R = _f32_up(0.8661)
+E_V = 2.0 ** -21
+E_X = 2.0 ** -18
+SLACK = 1.0 + 2.0 ** -16
+CONE_SLACK = 2.0 ** -20
 
 @dataclass
 class DenseLayout:
@@ -162,17 +178,20 @@ class DenseLayout:
         skips (a mesh without triangles). A mesh's rows are [first, first
         + rows) of both tables.
       leaf_table (P, 16) f32: build_tri_table's rows, each mesh's in its
-        BLAS leaf order (`mesh_leaf_rows`); leaf_ids (P,) i32 the
-        triangle id of each (a permutation of range(P)).
+        BLAS leaf order (`mesh_leaf_rows`) regrouped into superblocks and
+        groups by their normals or their places (`leaf_groups`);
+        leaf_ids (P,) i32 the triangle id of each (a permutation of
+        range(P)).
       mesh_index (M, 2) i32: per mesh object, its first superblock and
         first group. A mesh's groups are GROUP consecutive rows of
         leaf_table from its first row (the last may be short), its
         superblocks SUPER consecutive groups.
-      root_box (M, 8), block_box (S, 8), group_box (G, 8) f32: mesh-space
-        boxes [lo (3), V, hi (3), F] of each mesh, superblock and group:
-        the exact bounds of its triangles' vertices widened by an ulp, V
-        the largest |coordinate| of the box, F its margin factor
-        (`box_factor`).
+      root_box (M, 12), block_box (S, 12), group_box (G, 12) f32:
+        mesh-space boxes [lo (3), V, hi (3), F, c (3), S] of each mesh,
+        superblock and group: the exact bounds of its triangles' vertices
+        widened by an ulp, V the largest |coordinate| of the box, F its
+        margin factor (`box_factor`), [c, S] the cone of its triangles'
+        normals (`box_cone`).
 
     `table` is the plain version's copy, row = triangle id, made from
     leaf_table when it is read.
@@ -257,6 +276,108 @@ def tri_shape(tri_packed: np.ndarray) -> np.ndarray:
         return np.where(L > 0.0, n / (L * L), 0.0)
 
 
+def tri_normals(tri_packed: np.ndarray) -> np.ndarray:
+    """Unit normals (P, 3) float64 of the packed triangles with their
+    exact vertices, e1 x e2 normalised (as tri_shape; NaN for a
+    degenerate triangle). Each is within 2^-48 / mu of the exact unit
+    normal, mu its shape."""
+    tri = np.asarray(tri_packed, np.float32).astype(np.float64)
+    n = np.cross(tri[:, 3:6], tri[:, 6:9])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return n / np.linalg.norm(n, axis=1, keepdims=True)
+
+
+def _aligned(nh: np.ndarray) -> np.ndarray:
+    """Unit normals (n, 3) with their signs turned toward the first's,
+    then three times toward their mean."""
+    v = nh * np.where(nh @ nh[0] < 0.0, -1.0, 1.0)[:, None]
+    for _ in range(3):
+        v = v * np.where(v @ v.sum(axis=0) < 0.0, -1.0, 1.0)[:, None]
+    return v
+
+
+def box_cone(nh: np.ndarray, mu_min: float) -> np.ndarray:
+    """The normal cone [c (3), S] float32 of the unit normals nh (n, 3) of
+    triangles of least shape mu_min: c the float32 mean of the normals
+    with their signs turned toward the first's, S >= max |n_k - c / |c||
+    + 2^-48 / mu_min (tri_normals' error) + CONE_SLACK, rounded up;
+    [0, 0, 1, 4] (no cone: the plane test keeps the box) where a normal
+    is NaN."""
+    if not (np.isfinite(nh).all() and mu_min > 0.0):
+        return np.array([0.0, 0.0, 1.0, 4.0], np.float32)
+    sh = _aligned(nh)
+    m = sh.sum(axis=0)
+    if not np.linalg.norm(m) > 0.0:
+        return np.array([0.0, 0.0, 1.0, 4.0], np.float32)
+    c = (m / np.linalg.norm(m)).astype(np.float32)
+    ch = c.astype(np.float64) / np.linalg.norm(c.astype(np.float64))
+    spread = np.linalg.norm(sh - ch, axis=1).max()
+    return np.append(c, _f32_up((spread + 2.0 ** -48 / mu_min)
+                                * (1.0 + 2.0 ** -40)
+                                + CONE_SLACK)).astype(np.float32)
+
+
+def _axis(x: np.ndarray) -> np.ndarray:
+    """The principal axis of the rows of x (n, 3) about their mean, its
+    largest component positive."""
+    ax = np.linalg.svd(x - x.mean(axis=0), full_matrices=False)[2][0]
+    return ax * np.sign(ax[np.argmax(np.abs(ax))])
+
+
+def plane_groups(nh: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                 scale: float, levels: int) -> np.ndarray:
+    """A permutation of n = 2^levels * k rows (unit normals nh (n, 3),
+    bounds lo, hi (n, 3)) into 2^levels runs of k: the rows split in
+    halves at the median of their normals' principal axis or of their
+    centres', whichever gives the halves the smaller sum of spread *
+    scale + extent (the spread of their normals, up to sign; their
+    boxes' largest extent), the halves again, `levels` times (stable
+    sorts; the identity where a normal is NaN). The plane test keeps a
+    box for a line within about spread * (the line's distance) + extent
+    of it (csrc/dense_hit.cu's header), `scale` standing for that
+    distance: a displaced mesh's groups gather by normal, a flat one's
+    stay together in space."""
+    idx = np.arange(nh.shape[0])
+    if levels == 0 or not np.isfinite(nh).all():
+        return idx
+    v = _aligned(nh)
+    cen = (lo + hi) * 0.5
+
+    def cost(part):
+        w = _aligned(nh[part])
+        m = w.sum(axis=0)
+        spread = np.linalg.norm(w - m / np.linalg.norm(m), axis=1).max()
+        return spread * scale + (hi[part].max(axis=0)
+                                 - lo[part].min(axis=0)).max()
+    h = idx.size // 2
+    splits = [np.argsort(x @ _axis(x), kind="stable") for x in (cen, v)]
+    s = min(splits, key=lambda s: cost(s[:h]) + cost(s[h:]))
+    return np.concatenate([
+        s[:h][plane_groups(nh[s[:h]], lo[s[:h]], hi[s[:h]], scale,
+                           levels - 1)],
+        s[h:][plane_groups(nh[s[h:]], lo[s[h:]], hi[s[h:]], scale,
+                           levels - 1)]])
+
+
+def leaf_groups(order: np.ndarray, nh: np.ndarray, lo: np.ndarray,
+                hi: np.ndarray) -> np.ndarray:
+    """A mesh's row order from its BLAS leaf order `order` (triangle ids)
+    and its triangles' unit normals and bounds (indexed by id): each
+    whole run of SUPER superblocks re-split into superblocks, then each
+    whole superblock into groups, by plane_groups (the mesh's box
+    diagonal as its scale)."""
+    order = order.copy()
+    scale = float(np.linalg.norm(hi[order].max(axis=0)
+                                 - lo[order].min(axis=0)))
+    levels = SUPER.bit_length() - 1
+    for size in (TILE * SUPER, TILE):
+        for a in range(0, order.size - size + 1, size):
+            run = order[a:a + size]
+            order[a:a + size] = run[plane_groups(nh[run], lo[run], hi[run],
+                                                 scale, levels)]
+    return order
+
+
 def box_factor(mu_min: np.ndarray) -> np.ndarray:
     """The margin factor F of boxes whose least triangle shape is mu_min:
     max(1, RHO / (THETA * mu_min)), rounded up (with room for the float64
@@ -269,16 +390,19 @@ def box_factor(mu_min: np.ndarray) -> np.ndarray:
                     np.nextafter(f32, np.float32(np.inf)), f32)
 
 
-def _boxes(lo: np.ndarray, hi: np.ndarray, mu: np.ndarray,
+def _boxes(lo: np.ndarray, hi: np.ndarray, mu: np.ndarray, nh: np.ndarray,
            size: int) -> np.ndarray:
-    """(ceil(n / size), 8) boxes [lo, V, hi, F] of consecutive runs of
-    `size` rows of per-row bounds (n, 3) and shapes mu (n,)."""
+    """(ceil(n / size), 12) boxes [lo, V, hi, F, c, S] of consecutive runs
+    of `size` rows of per-row bounds (n, 3), shapes mu (n,) and unit
+    normals nh (n, 3)."""
     at = np.arange(0, lo.shape[0], size)
     blo = np.minimum.reduceat(lo, at, axis=0)
     bhi = np.maximum.reduceat(hi, at, axis=0)
     V = np.maximum(np.abs(blo), np.abs(bhi)).max(axis=1, keepdims=True)
     F = box_factor(np.minimum.reduceat(mu, at))[:, None]
-    return np.concatenate([blo, V, bhi, F], axis=1).astype(np.float32)
+    cone = np.stack([box_cone(nh[a:a + size], mu[a:a + size].min())
+                     for a in at])
+    return np.concatenate([blo, V, bhi, F, cone], axis=1).astype(np.float32)
 
 
 def build_dense(geom: Geometry, n_instances: int) -> DenseLayout:
@@ -287,21 +411,23 @@ def build_dense(geom: Geometry, n_instances: int) -> DenseLayout:
     table = build_tri_table(tri)
     lo, hi = tri_bounds(tri)
     mu = tri_shape(tri)
+    nh = tri_normals(tri)
     meshes = mesh_leaf_rows(geom)
     leaf = np.arange(table.shape[0], dtype=np.int32)
     index = np.zeros((len(meshes), 2), np.int32)
-    roots = np.zeros((len(meshes), 8), np.float32)
+    roots = np.zeros((len(meshes), 12), np.float32)
     blocks, groups = [], []
     n_blocks = n_groups = 0
     for m, (base, n, order) in enumerate(meshes):
         index[m] = (n_blocks, n_groups)
         if n == 0:
             continue
+        order = leaf_groups(order, nh, lo, hi)
         leaf[base:base + n] = order
-        mlo, mhi, mmu = lo[order], hi[order], mu[order]
-        roots[m] = _boxes(mlo, mhi, mmu, n)[0]
-        blocks.append(_boxes(mlo, mhi, mmu, TILE))
-        groups.append(_boxes(mlo, mhi, mmu, GROUP))
+        mlo, mhi, mmu, mnh = lo[order], hi[order], mu[order], nh[order]
+        roots[m] = _boxes(mlo, mhi, mmu, mnh, n)[0]
+        blocks.append(_boxes(mlo, mhi, mmu, mnh, TILE))
+        groups.append(_boxes(mlo, mhi, mmu, mnh, GROUP))
         n_blocks += blocks[-1].shape[0]
         n_groups += groups[-1].shape[0]
     kind = geom.inst_kind.cpu().numpy()
@@ -317,7 +443,7 @@ def build_dense(geom: Geometry, n_instances: int) -> DenseLayout:
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     def stack(boxes):
-        return np.concatenate(boxes) if boxes else np.zeros((0, 8),
+        return np.concatenate(boxes) if boxes else np.zeros((0, 12),
                                                             np.float32)
     return DenseLayout(plan=dev_t(plan),
                        leaf_table=dev_t(table[leaf]),
@@ -401,23 +527,37 @@ def dense_hit_plain(geom: Geometry, dense: DenseLayout, o_w, d_w,
 def cull_ray(o, d):
     """The box test's per-(ray, instance) terms of the instance-space ray
     (o, d) (B, 3), as the kernel computes them: 1/d (correctly rounded),
-    d's sign bits, O = max |o_i| and MARGIN_ABS / A, A = max |d_i|."""
+    d's sign bits, O = max |o_i|, MARGIN_ABS / A, A = max |d_i|, d and
+    |d| (a correctly rounded root)."""
     inv = torch.ones_like(d) / d
     neg = torch.signbit(d)
     O = o.abs().amax(dim=1)
-    kA = MARGIN_ABS / d.abs().amax(dim=1)
-    return inv, neg, O, kA
+    A = d.abs().amax(dim=1)
+    dn = vm.ieee_sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                      + d[:, 2] * d[:, 2])
+    # tensor divisions (a Python scalar over a tensor multiplies by its
+    # reciprocal, which is not correctly rounded)
+    return inv, neg, O, torch.full_like(A, MARGIN_ABS) / A, d, A, dn
 
 
-def box_keep(box, o, cr, best):
-    """Whether each ray may use each box: (B, K) bool for boxes (K, 8)
-    [lo, V, hi, F], rays o (B, 3) with cull_ray terms `cr`, and running
-    best (B,), or (B, K), one for each box. The kernel's `box_keep`,
-    operation for operation (IEEE round to nearest; fmax and fmin drop a
-    NaN; a NaN comparison keeps): the slab interval of the box inflated
-    by MARGIN_BOX * (V + O) * F, widened, against [-tm, best * (1 +
-    MARGIN_REL * F) + tm], tm = kA * (V + O) * F."""
-    inv, neg, O, kA = cr
+def _cross(a, b):
+    """a x b of (..., 3) tensors, each component one difference of two
+    products, as the kernel computes it."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def _norm3(x):
+    return vm.ieee_sqrt((x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1])
+                        + x[..., 2] * x[..., 2])
+
+
+def slab_keep(box, o, cr, best):
+    """The slab test of `box_keep`: (B, K) bool, the slab interval of
+    each box inflated by MARGIN_BOX * (V + O) * F, widened, against [-tm,
+    best * (1 + MARGIN_REL * F) + tm], tm = kA * (V + O) * F."""
+    inv, neg, O, kA, _, _, _ = cr
     lo, V, hi, F = box[:, 0:3], box[:, 3], box[:, 4:7], box[:, 7]
     sf = (O[:, None] + V[None, :]) * F[None, :]
     m = MARGIN_BOX * sf
@@ -438,6 +578,39 @@ def box_keep(box, o, cr, best):
     ex = torch.where(ex > 0.0, ex * WIDEN_UP, ex * WIDEN_DN) + FLT_MIN
     tlim = (best if best.dim() == 2 else best[:, None]) * rel + tm
     return ~((en > ex) | (en > tlim) | (ex < -tm))
+
+
+def plane_keep(box, o, cr):
+    """The plane test of `box_keep`: (B, K) bool, false where |M x c| >
+    (S |M| + T) * SLACK for the moment M = (centre - o) x d of the ray's
+    line about the box's centre (lo + hi) * 0.5, T = |d| (K_R L_B + E_V V
+    + E_X max |centre - o|) + A (K_T L_B + C_W (V + O) F)."""
+    _, _, O, _, d, A, dn = cr
+    lo, V, hi, F = box[:, 0:3], box[:, 3], box[:, 4:7], box[:, 7]
+    c, S = box[:, 8:11], box[:, 11]
+    sf = (O[:, None] + V[None, :]) * F[None, :]
+    x = (lo + hi) * 0.5 - o[:, None, :]                       # (B, K, 3)
+    X = torch.fmax(torch.fmax(x[..., 0].abs(), x[..., 1].abs()),
+                   x[..., 2].abs())
+    M = _cross(x, d[:, None, :])
+    q = _cross(M, c[None])
+    ext = hi - lo
+    LB = torch.fmax(torch.fmax(ext[:, 0], ext[:, 1]), ext[:, 2])
+    reach = K_R * LB + E_V * V
+    T = (dn[:, None] * (reach[None, :] + E_X * X)
+         + A[:, None] * (K_T * LB[None, :] + C_W * sf))
+    return ~(_norm3(q) > (S[None, :] * _norm3(M) + T) * SLACK)
+
+
+def box_keep(box, o, cr, best):
+    """Whether each ray may use each box: (B, K) bool for boxes (K, 12)
+    [lo, V, hi, F, c, S], rays o (B, 3) with cull_ray terms `cr`, and
+    running best (B,), or (B, K), one for each box: the slab test
+    (`slab_keep`) or the plane test (`plane_keep`). The kernel's
+    `box_keep`, operation for operation (IEEE round to nearest, roots
+    correctly rounded; fmax and fmin drop a NaN; a NaN comparison
+    keeps)."""
+    return slab_keep(box, o, cr, best) | plane_keep(box, o, cr)
 
 
 def _group_min(rows, ids, o, d, w):
@@ -555,10 +728,10 @@ def dense_hit(geom: Geometry, o_w, d_w, limit, dense: DenseLayout) -> Hit:
     check(dense.leaf_ids, "leaf_ids", torch.int32, (P,))
     check(dense.plan, "plan", torch.int32, (I, 4), align=16)
     check(dense.mesh_index, "mesh_index", torch.int32, (M, 2), align=8)
-    check(dense.root_box, "root_box", torch.float32, (M, 8), align=16)
+    check(dense.root_box, "root_box", torch.float32, (M, 12), align=16)
     for name in ("block_box", "group_box"):
         box = getattr(dense, name)
-        check(box, name, torch.float32, (box.shape[0], 8), align=16)
+        check(box, name, torch.float32, (box.shape[0], 12), align=16)
     for name in ("inst_Ainv", "inst_offset", "sph_radius"):
         check(getattr(geom, name), name, torch.float32)
     dev = o_w.device
@@ -568,7 +741,8 @@ def dense_hit(geom: Geometry, o_w, d_w, limit, dense: DenseLayout) -> Hit:
     if B == 0:
         return Hit(t=t, prim=prim, inst=inst)
     fn = cuda_build.function("dense_hit", "craytpu_dense_hit",
-                             "pppi" + "ppp" + "i" + "p" * 7 + "fff" + "p" * 4)
+                             "pppi" + "ppp" + "i" + "p" * 7 + "f" * 9
+                             + "p" * 4)
     tables = (dense.leaf_table, dense.leaf_ids, dense.plan)
     boxes = (dense.mesh_index, dense.root_box, dense.block_box,
              dense.group_box, geom.inst_Ainv, geom.inst_offset,
@@ -577,6 +751,7 @@ def dense_hit(geom: Geometry, o_w, d_w, limit, dense: DenseLayout) -> Hit:
         "dense_hit", fn, o_w.data_ptr(), d_w.data_ptr(), limit.data_ptr(),
         B, *(x.data_ptr() for x in tables), I,
         *(x.data_ptr() for x in boxes), MARGIN_BOX, MARGIN_REL, MARGIN_ABS,
+        K_T, C_W, K_R, E_V, E_X, SLACK,
         t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, size=B)
     dense_hit.launches += 1

@@ -110,8 +110,9 @@ def _slot_point(row, slot):
 
 
 def _norm(x):
-    """|x| over the last axis as sqrt(sum(x * x)) (no overflow scaling)."""
-    return torch.sqrt((x * x).sum(-1))
+    """|x| over the last axis as sqrt(sum(x * x)) (no overflow scaling),
+    as jnp.linalg.norm."""
+    return vm.ieee_sqrt((x * x).sum(-1))
 
 
 class _Edges:

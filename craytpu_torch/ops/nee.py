@@ -61,12 +61,12 @@ def make_nee_fn(cscene, kind: str):
         p0, e1, e2 = lights.p0[li], lights.e1[li], lights.e2[li]
 
         # sample a point: triangle via sqrt warp; sphere via uniform area
-        su = torch.sqrt(torch.clamp_min(d1, 0.0))
+        su = vm.ieee_sqrt(torch.clamp_min(d1, 0.0))
         b1 = 1.0 - su
         b2 = d2 * su
         p_tri = p0 + e1 * b1[:, None] + e2 * b2[:, None]
         z = 1.0 - 2.0 * d1
-        r_xy = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        r_xy = vm.ieee_sqrt(torch.clamp_min(1.0 - z * z, 0.0))
         phi = _TWO_PI * d2
         sph_dir = torch.stack([r_xy * torch.cos(phi), r_xy * torch.sin(phi),
                                z], dim=-1)
@@ -77,7 +77,7 @@ def make_nee_fn(cscene, kind: str):
 
         to_l = p_l - rec.hit_point
         dist2 = torch.clamp_min(vm.vdot(to_l, to_l), 1e-12)
-        dist = torch.sqrt(dist2)
+        dist = vm.ieee_sqrt(dist2)
         wi = to_l / dist[:, None]
         cos_s = vm.vdot(rec.normal, wi)
         cos_l = torch.abs(vm.vdot(n_light, wi))

@@ -295,7 +295,7 @@ _MATH_IMPL = {
     "Divide": lambda a, b: a / b,
     "Power": lambda a, b: torch.pow(a, b),
     "Log": lambda a, b: torch.log10(a),
-    "SquareRoot": lambda a, b: torch.sqrt(a),
+    "SquareRoot": lambda a, b: vm.ieee_sqrt(a),
     "Absolute": lambda a, b: torch.abs(a),
     "Min": lambda a, b: torch.minimum(a, b),
     "Max": lambda a, b: torch.maximum(a, b),

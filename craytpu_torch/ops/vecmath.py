@@ -181,6 +181,21 @@ class _ExactSqrt(torch.autograd.Function):
         return g / (s + s)
 
 
+class _IeeeSqrt(torch.autograd.Function):
+    """JAX's sqrt rule, g * (0.5 / ans), in the input's dtype (autograd
+    through the float64 root would take the backward in float64)."""
+    @staticmethod
+    def forward(ctx, x):
+        s = _ieee_sqrt(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s.new_tensor(0.5) / s)
+
+
 class _Fma(torch.autograd.Function):
     """fma_raw (det=False) or det_fma (det=True); d/d(a, b, c) =
     (b, a, 1)."""
@@ -218,6 +233,16 @@ def exact_sqrt(x):
     if _wants_grad(x):
         return _ExactSqrt.apply(x)
     return _exact_sqrt(x)
+
+
+def ieee_sqrt(x):
+    """sqrt(x) correctly rounded on every device (`_ieee_sqrt`), where the
+    JAX package calls jnp.sqrt, whose XLA root is correctly rounded;
+    the same under CRAYTPU_FASTMATH=1. Derivative: g * (0.5 / sqrt(x)),
+    JAX's rule, rounded as JAX rounds it."""
+    if _wants_grad(x):
+        return _IeeeSqrt.apply(x)
+    return _ieee_sqrt(x)
 
 
 def fma_raw(a, b, c):

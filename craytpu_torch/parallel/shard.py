@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+from craytpu_torch.ops import vecmath as vm
 from craytpu_torch.ops.edge_grad import make_edge_grad_fn
 from craytpu_torch.parallel import dist
 from craytpu_torch.utils import logging
@@ -310,7 +311,7 @@ def _adam(leaves, grads, state: AdamState, lr: float):
         v = (1 - b2) * (g * g) + b2 * v
         m_hat = m / m.new_tensor(bc1)
         v_hat = v / v.new_tensor(bc2)
-        u = m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
+        u = m_hat / (vm.ieee_sqrt(v_hat) + ADAM_EPS)
         out.append(x + (-lr) * u)
         mu.append(m)
         nu.append(v)

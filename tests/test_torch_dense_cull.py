@@ -107,7 +107,9 @@ def check_cull(cs, o, d, limit=None):
 def test_layout_matches_jax_package(scene):
     """The leaf-ordered table, ids and boxes from the JAX package's
     arrays (as a cluster worker gets them) equal the port's own; each
-    mesh's rows are its BLAS leaf order, a permutation of its ids; the
+    mesh's rows are its BLAS leaf order, a permutation of its ids,
+    regrouped into superblocks and groups (leaf_groups of the JAX
+    package's triangles); the
     superblock and group boxes are build_tri_coeffs_T's block bounds of
     the leaf-ordered triangles at 256 and 32 triangles a block, widened
     by one ulp outward; V bounds the box's coordinates."""
@@ -139,7 +141,16 @@ def test_layout_matches_jax_package(scene):
         ids = mine.leaf_ids[base:base + n].numpy()
         assert np.array_equal(np.sort(slots), np.arange(slots.min(),
                                                         slots.max() + 1))
-        assert np.array_equal(ids, prim[np.sort(slots)])
+        # the BLAS leaf order regrouped (leaf_groups of the JAX package's
+        # triangles): the same superblocks' rows when a mesh has fewer
+        # than SUPER superblocks' worth of them
+        order = dx.leaf_groups(prim[np.sort(slots)], dx.tri_normals(tri),
+                               *dx.tri_bounds(tri))
+        assert np.array_equal(ids, order)
+        for a in range(0, n, dx.TILE * dx.SUPER):
+            assert (np.sort(ids[a:a + dx.TILE * dx.SUPER])
+                    == np.sort(prim[np.sort(slots)][a:a + dx.TILE
+                                                    * dx.SUPER])).all()
         assert sorted(ids) == list(range(base, base + n))
         sb0, g0 = mine.mesh_index[m].tolist()
         for size, boxes, first in ((dx.TILE, mine.block_box, sb0),
@@ -176,17 +187,26 @@ def test_cull_keeps_every_accepted_pair_on_aimed_rays(scene):
     assert accepted > 100
 
 
-def test_cull_prunes(scene):
-    """The cull does cull: on rays aimed at the mesh a lane votes for a
-    small share of the groups (and a dead lane for none)."""
+def test_cull_prunes(scene, monkeypatch):
+    """The cull does cull: on rays aimed at the mesh a lane's slab test
+    votes for a small share of the groups, the plane test adds votes
+    only to what the slab test skips (dense_hit.cu's header: its cone
+    of normals keeps many boxes of a displaced or closed mesh), and a
+    dead lane votes for none."""
     name, cs = scene
     rng = np.random.default_rng(102)
     o, d = (torch.from_numpy(x) for x in aimed_rays(cs, rng, 96))
     limit = torch.where(torch.arange(96) % 4 == 0, 0.0, FLT_MAX)
     _, culls = dx.dense_cull_plain(cs.geom, cs.dense, o, d, limit)
     group = torch.cat([c["group"] for c in culls], 1)
+    monkeypatch.setattr(dx, "plane_keep",
+                        lambda box, o, cr: torch.zeros(
+                            (o.shape[0], box.shape[0]), dtype=torch.bool))
+    _, culls = dx.dense_cull_plain(cs.geom, cs.dense, o, d, limit)
+    slab = torch.cat([c["group"] for c in culls], 1)
     assert not group[limit == 0].any()
-    assert group[limit > 0].float().mean() < 0.1
+    assert slab[limit > 0].float().mean() < 0.1
+    assert (group | slab).equal(group) and group.float().mean() < 1.0
 
 
 def test_cull_and_ties_on_constructed_scene(tmp_path):

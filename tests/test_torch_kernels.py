@@ -22,6 +22,7 @@ from craytpu_torch.scene.device import INST_SPHERE
 from craytpu_torch.scene.sceneloader import load_scene_from_file
 from tests.torch_dense_rays import (DUPLICATES, FLAT_INSTANCES, aimed_rays,
                                     face_plane_rays, flat_rays,
+                                    floor_edge_rays, floor_scene, graze_rays,
                                     near_plane_rays, tangent_rays,
                                     tie_scene)
 
@@ -299,6 +300,35 @@ def test_dense_hit_kernel_on_tangent_rays(fast, monkeypatch):
     limit = torch.where(torch.arange(3000) % 9 == 4, 0.0, trv.FLT_MAX)
     want = check_dense_variant(cs, o, d, limit, fast, monkeypatch)
     assert (want.prim >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("name", ["floor", "stress_highpoly"])
+def test_dense_hit_kernel_on_plane_rays(tmp_path, name, fast, monkeypatch):
+    """Rays at 0 to THETA off a triangle's plane (graze_rays: in the plane,
+    1e-8 ... 1e-3 rad and up to THETA; through the triangle and beside
+    it, from 0.2-3 and 50-400 units): on the tilted floor, with rays in its
+    plane beside it that only rounding hits, and on stress_highpoly's
+    slivers; every 9th lane dead. Bit-equal in both variants."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(44)
+    if name == "floor":
+        cs, share, B = floor_scene(tmp_path), 1.0, 400
+        rays = [floor_edge_rays(rng, B, (0.2, 3.0))]
+    else:
+        cs, share, B = compile_scene(load_scene_from_file(
+            os.path.join(ASSETS, "stress_highpoly.json"),
+            {"width": 32, "height": 24}), "cpu"), 0.02, 200
+        rays = []
+    rays += [graze_rays(cs, rng, B, where, dist, share)
+             for where in ("through", "beside")
+             for dist in ((0.2, 3.0), (50.0, 400.0))]
+    o = torch.from_numpy(np.concatenate([r[0] for r in rays]))
+    d = torch.from_numpy(np.concatenate([r[1] for r in rays]))
+    limit = torch.where(torch.arange(o.shape[0]) % 9 == 4, 0.0, trv.FLT_MAX)
+    want = check_dense_variant(cs, o, d, limit, fast, monkeypatch)
+    assert (want.prim >= 0).float().mean() > 0.2
 
 
 @pytest.mark.parametrize("fast", [False, True])

@@ -54,6 +54,62 @@ def flat_obj(path, n=4):
         f.write("\n".join(lines) + "\n")
 
 
+# the tilted floor's plane normal (floor_obj)
+FLOOR_NORMAL = (0.3, 0.5, 0.81)
+
+
+def floor_basis():
+    """(unit normal, two unit in-plane axes) of the tilted floor."""
+    nh = np.asarray(FLOOR_NORMAL) / np.linalg.norm(FLOOR_NORMAL)
+    u = np.cross(nh, [0.0, 0.0, 1.0])
+    u /= np.linalg.norm(u)
+    return nh, u, np.cross(nh, u)
+
+
+def floor_obj(path, n=24, size=1.0, center=(0.0, 0.0, 0.0), seed=7):
+    """An n x n grid of jittered quads, two triangles a quad, over
+    [-size, size]^2 of the plane through `center` with normal
+    FLOOR_NORMAL: its vertices lie on no float grid, so each triangle's
+    coefficients are rounded and its own plane is the floor's within
+    rounding."""
+    rng = np.random.default_rng(seed)
+    _, u, w = floor_basis()
+    g = np.linspace(-1.0, 1.0, n + 1)
+    pts = [np.asarray(center) + size * ((x + jx) * u + (y + jy) * w)
+           for y in g for x in g
+           for jx, jy in [rng.uniform(-0.3, 0.3, 2) * (2.0 / n)]]
+    lines = [f"v {q[0]:.9g} {q[1]:.9g} {q[2]:.9g}" for q in pts]
+    for i in range(n):
+        for j in range(n):
+            a = i * (n + 1) + j + 1
+            b, c, d = a + 1, a + n + 1, a + n + 2
+            lines += [f"f {a} {b} {d}", f"f {a} {d} {c}"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def floor_scene(tmp_path, device="cpu", **kw):
+    """The tilted floor (floor_obj's keywords) as the only mesh of a
+    scene, its instance the identity."""
+    floor_obj(tmp_path / "floor.obj", **kw)
+    scene = {
+        "version": 1.0,
+        "renderer": {"samples": 1, "bounces": 2, "tileWidth": 16,
+                     "tileHeight": 16, "outputFilePath": "output/",
+                     "outputFileName": "floor", "width": 32, "height": 24},
+        "camera": {"FOV": 60.0, "transforms": [
+            {"type": "translate", "x": 0.0, "y": 0.0, "z": -4.0}]},
+        "scene": {"ambientColor": {"down": {"r": 0.8, "g": 0.8, "b": 0.8},
+                                   "up": {"r": 0.4, "g": 0.6, "b": 0.9}},
+                  "primitives": [],
+                  "meshes": [{"fileName": "floor.obj", "bsdf": "lambertian",
+                              "instances": [{"transforms": [
+                                  {"type": "translate", "x": 0.0, "y": 0.0,
+                                   "z": 0.0}]}]}]}}
+    return compile_scene(load_scene_from_buf(json.dumps(scene),
+                                             str(tmp_path) + "/"), device)
+
+
 # the tie scene's flat grid: its two instances (the second moved one cell
 # along +x, so that a point of both has a lower id in the second), the
 # first one's x offset (clear of the other meshes) and its plane's z
@@ -259,3 +315,64 @@ def near_plane_rays(cs, rng, B, lo, hi, share=0.02):
         q = v0 - u * e1 + v * e2
         p[r] = q - rng.uniform(0.2, 3.0) * d[r]
     return _to_world(cs, i, p, d)
+
+
+# the angles (radians) off a triangle's plane that graze_rays cycles
+# through; every sixth ray takes one uniform in [0, THETA) instead
+GRAZE_ANGLES = (0.0, 1e-8, 1e-6, 1e-4, 1e-3)
+
+
+def graze_rays(cs, rng, B, where, dist, share=1.0):
+    """B rays off the plane of one of the `share` of the first mesh
+    instance's triangles with the least shape |n| / L^2 (1.0: any), at
+    the angles GRAZE_ANGLES and up to THETA (0: in the plane, built in
+    float64, then rounded): `where` "through", through a point of the
+    triangle in a random direction of its plane, tilted by the angle;
+    "beside", through a point of its plane outside its group's box (one
+    to two box diagonals from its centroid), along the plane
+    perpendicular to that offset (so the line keeps off the box), tilted
+    by the angle; from an origin dist = (lo, hi) units back along the
+    ray. The mesh instance must keep angles."""
+    i, first, n = _mesh_instance(cs)
+    tri = cs.geom.tri_packed.double().numpy()[first:first + n]
+    mu = dx.tri_shape(tri)
+    pick = np.argsort(mu)[:max(int(share * n), 1)]
+    rows = np.argsort(cs.dense.leaf_ids[first:first + n].numpy() - first)
+    g0 = int(cs.dense.mesh_index[cs.dense.plan[i, 3]][1])
+    gbox = cs.dense.group_box.double().numpy()
+    p, d = np.zeros((B, 3)), np.zeros((B, 3))
+    for r in range(B):
+        k = pick[rng.integers(pick.size)]
+        v0, e1, e2 = tri[k, 0:3], tri[k, 3:6], tri[k, 6:9]
+        nh = _unit(np.cross(-e1, e2))
+        a = rng.normal(size=3)
+        a = _unit(a - (a @ nh) * nh)
+        if where == "through":
+            u, v = rng.dirichlet(np.ones(3))[:2]
+            q = v0 - u * e1 + v * e2
+        else:
+            gb = gbox[g0 + rows[k] // dx.GROUP]
+            diag = np.linalg.norm(gb[4:7] - gb[0:3])
+            q = v0 + (e2 - e1) / 3 + rng.uniform(1.0, 2.0) * diag * a
+            a = _unit(np.cross(nh, a))
+        k_ang = r % (len(GRAZE_ANGLES) + 1)
+        beta = (GRAZE_ANGLES[k_ang] if k_ang < len(GRAZE_ANGLES)
+                else rng.uniform(0.0, dx.THETA)) * rng.choice([-1.0, 1.0])
+        d[r] = np.cos(beta) * a + np.sin(beta) * nh
+        p[r] = q - rng.uniform(*dist) * d[r]
+    return _to_world(cs, i, p, d)
+
+
+def floor_edge_rays(rng, B, dist):
+    """B rays in the tilted floor's plane (angles GRAZE_ANGLES[:2]: 0,
+    built in float64, and 1e-8), along its u axis at 1.1-1.4 of its
+    half-width beside it on w."""
+    nh, u, w = floor_basis()
+    o, d = np.zeros((B, 3)), np.zeros((B, 3))
+    for r in range(B):
+        q = rng.uniform(-1.0, 1.0) * u + rng.choice([-1.0, 1.0]) \
+            * rng.uniform(1.1, 1.4) * w
+        beta = GRAZE_ANGLES[r % 2] * rng.choice([-1.0, 1.0])
+        d[r] = np.cos(beta) * u * rng.choice([-1.0, 1.0]) + np.sin(beta) * nh
+        o[r] = q - rng.uniform(*dist) * d[r]
+    return o.astype(np.float32), d.astype(np.float32)
