@@ -41,22 +41,28 @@ Per-(pixel, pass) semantics match the reference exactly:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, fields, is_dataclass, replace
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from craytpu_torch.ops import dense_isect as dx
+from craytpu_torch.ops import hitrec as hr
+from craytpu_torch.ops import pcg
 from craytpu_torch.ops import sampler as smp
 from craytpu_torch.ops import shading
+from craytpu_torch.ops import traverse as trv
 from craytpu_torch.ops import vecmath as vm
 from craytpu_torch.ops.hitrec import TRAVERSALS, Isect
 from craytpu_torch.ops.nee import make_nee_fn
 from craytpu_torch.runtime.checkpoint import GidQueue
 from craytpu_torch.scene.compile import CompiledScene
+from craytpu_torch.utils.graphs import GraphCache
 from craytpu_torch.utils.torchsetup import debug_enabled
 
 
@@ -110,11 +116,54 @@ def _set_tail(pool: Pool, start: int, fresh: Pool) -> None:
             a[start:] = b
 
 
+def _assign(dst: Pool, src: Pool) -> None:
+    """Copy every tensor of src into dst's, in place (a field that is the
+    same tensor on both sides is left as it is)."""
+    for f in fields(Pool):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if f.name == "s":
+            for g in fields(a):
+                getattr(a, g.name).copy_(getattr(b, g.name))
+        else:
+            a.copy_(b)
+
+
+def _scatter_add(final, lane, delta) -> None:
+    """final[lane[i]] += delta[i] for every i, in place and with no
+    atomics, so that where lanes repeat (two passes of one pixel in one
+    flush) the sum has the same bits in every run: the JAX package's
+    final.at[lane].add(delta). index_put_(accumulate=True) adds a pixel's
+    rows to it one after another, in order of i, on the CPU (as XLA's CPU
+    scatter does: bit-equal, tests/test_torch_graph_safe.py); on CUDA it
+    sorts the lane ids with a stable radix sort, sums each pixel's rows
+    in that order and adds the sum to the pixel: final + (d_1 + d_2),
+    the same bits in every run (chip_smoke.py's check_flush, which reads
+    the order from rows of 2^-24 added to 1.0)."""
+    final.index_put_((lane.long(),), delta, accumulate=True)
+
+
+def _tensors_in(x):
+    """Every tensor held by x through dataclass fields, lists, tuples and
+    dicts."""
+    if torch.is_tensor(x):
+        yield x
+    elif is_dataclass(x) and not isinstance(x, type):
+        for f in fields(x):
+            yield from _tensors_in(getattr(x, f.name))
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors_in(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors_in(v)
+
+
 def _count_to_host(n: torch.Tensor):
     """Start copying a live count to the host without waiting for it: on
-    CUDA into pinned memory behind an event. Read it with _count_value."""
+    CUDA into pinned memory behind an event. Read it with _count_value.
+    (n is the renderer's static count, which the next step overwrites.)"""
     if n.device.type != "cuda":
-        return n, None
+        return n.clone(), None
     buf = torch.empty((), dtype=n.dtype, pin_memory=True)
     buf.copy_(n, non_blocking=True)
     ev = torch.cuda.Event()
@@ -224,7 +273,7 @@ class WavefrontRenderer:
 
     def __init__(self, cscene: CompiledScene, kind: str = smp.RANDOM,
                  bounces: int | None = None, tile_rays: int | None = None,
-                 nee: bool = False):
+                 nee: bool = False, graphs: bool = True):
         self.cscene = cscene
         self.kind = kind
         # next-event estimation in render, render_pass, trace_batch and
@@ -266,19 +315,37 @@ class WavefrontRenderer:
         self._sched_np = None
         self._sched_dev_t = None
         self._key_consts = {}
+        # the forward dispatches as CUDA graphs (utils/graphs.py): on the
+        # card unless graphs=False (A/B runs and tests) or CRAYTPU_DEBUG
+        # (whose checks read the device every bounce); the CPU runs the
+        # same dispatches eagerly
+        self.graphs = GraphCache(
+            self.device, graphs and not self._debug,
+            lambda: (trv.closest_hit, hr.hitrec_record, dx.dense_hit))
+        # the dispatches' static tensors: the pool of each width, the live
+        # count, per-call numbers as 0-d device tensors, the persistent
+        # loop's framebuffer sum and trace_batch's pixel coordinates and
+        # radiance buffer of each width
+        self._pools: dict = {}
+        self._scalars: dict = {}
+        self._n_live = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._fb = None
+        self._batch: dict = {}
 
     # ------------------------------------------------------------------
-    def _init_rays(self, xs, ys, pass_idx, spp: int):
+    def _init_rays(self, xs, ys, pass_idx, spp):
         """Primary rays and fresh sampler states for pixel coords (the
-        JAX package's _make_init_rays). pass_idx: an int, or a (B,)
-        tensor of one pass per lane."""
+        JAX package's _make_init_rays). pass_idx: an int, a 0-d tensor or
+        a (B,) tensor of one pass per lane; spp: an int or a 0-d tensor
+        (a dispatch's device inputs)."""
         B = xs.shape[0]
         pix_idx = ys.long() * self.width + xs.long()
-        full = lambda v: torch.full((B,), v, dtype=torch.int32,  # noqa: E731
-                                    device=xs.device)
-        if not torch.is_tensor(pass_idx):
-            pass_idx = full(pass_idx)
-        s = smp.init_sampler(self.kind, pass_idx, full(spp), pix_idx)
+
+        def full(v):
+            if torch.is_tensor(v):
+                return v.to(torch.int32).expand(B).contiguous()
+            return torch.full((B,), v, dtype=torch.int32, device=xs.device)
+        s = smp.init_sampler(self.kind, full(pass_idx), full(spp), pix_idx)
         return self.cam_fn(xs, ys, s)
 
     def _shade_all(self, params, rec, st, gid):
@@ -330,7 +397,7 @@ class WavefrontRenderer:
         # sanitize non-hit lanes: their hit data is garbage (t=FLT_MAX), and
         # a NaN in an untaken torch.where branch poisons the backward pass
         ih = is_hit[..., None]
-        n_safe = torch.where(ih, n_w, n_w.new_tensor([0.0, 0.0, 1.0]))
+        n_safe = torch.where(ih, n_w, vm.const((0.0, 0.0, 1.0), n_w.device))
         p_safe = torch.where(ih, p_w, 0.0)
         uv_safe = torch.where(ih, uv, 0.0)
         t_safe = torch.where(is_hit, hit_t, 1.0)
@@ -431,14 +498,121 @@ class WavefrontRenderer:
             pdepth = pdepth + 1
         return o, d, weight, delta, s, alive, pdepth
 
-    def _multi_step(self, k, o, d, weight, s, alive, pdepth, final_full,
-                    lane):
-        """k bounces, then the radiance deltas scatter-add into the batch
-        buffer by lane."""
-        o, d, weight, delta, s, alive, pdepth = self._bounces(
-            k, o, d, weight, torch.zeros_like(weight), s, alive, pdepth)
-        final_full.index_add_(0, lane, delta)
-        return o, d, weight, s, alive, pdepth, int(alive.sum())
+    # ------------------------------------------------------------------
+    # the dispatches' static state (utils/graphs.py)
+    # ------------------------------------------------------------------
+    def _static_pool(self, B: int) -> Pool:
+        """The static pool of width B, made at its first use (outside any
+        capture) and kept: every dispatch at this width reads it and
+        writes its results back into it."""
+        st = self._pools.get(B)
+        if st is None:
+            dev = self.device
+
+            def z(*shape, dtype=torch.float32):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+            i64, i32 = torch.int64, torch.int32
+            st = Pool(z(B, 3), z(B, 3), z(B, 4),
+                      smp.SamplerState(z(B, dtype=i64), z(B, dtype=i64),
+                                       z(B), z(B, dtype=i32),
+                                       z(B, dtype=i32), z(B, dtype=i32)),
+                      z(B, dtype=torch.bool), z(B, dtype=i32),
+                      z(B, dtype=i32), z(B, dtype=i32), z(B, 4))
+            self._pools[B] = st
+        return st
+
+    def _as_static(self, pool: Pool) -> Pool:
+        """The static pool of pool's width, holding pool (copied in unless
+        it is that pool already)."""
+        st = self._static_pool(pool.alive.shape[0])
+        if pool is not st:
+            _assign(st, pool)
+        return st
+
+    def _scalar(self, name: str, value: int) -> torch.Tensor:
+        """The dispatches' 0-d int32 device input `name`, set to value
+        (a fill on the device: no copy from the host, nothing waits)."""
+        t = self._scalars.get(name)
+        if t is None:
+            t = self._scalars[name] = torch.zeros(
+                (), dtype=torch.int32, device=self.device)
+        t.fill_(int(value))
+        return t
+
+    def _framebuffer(self, final):
+        """The framebuffer sum the persistent loop's dispatches add to:
+        with graphs, one static buffer of the renderer (made once, before
+        any capture that reads it) holding a copy of `final`, which the
+        loop copies back at its ends; without, `final` itself."""
+        if not self.graphs.on:
+            return final
+        if self._fb is None or self._fb.shape != final.shape:
+            self._fb = torch.empty_like(final)
+        self._fb.copy_(final)
+        return self._fb
+
+    def _graph_context(self) -> tuple:
+        """What every captured dispatch bakes in beyond its key: the NEE
+        flag, sampler kind, traversal and bounce cap; CRAYTPU_FASTMATH and
+        CRAYTPU_HITREC (they pick which library and which record path are
+        launched) and the kernel wrappers themselves (an A/B may swap
+        one); the sampler's digit steps; and the identity of the scene's
+        tables (cscene.params included): a table replaced by another
+        tensor means fresh captures, while an edit in place is read by
+        the next replay."""
+        cs = self.cscene
+        # the kernels' own tables are built at their first launch: build
+        # them now, so that the context holds from the first call on
+        _ = cs.dense if self.traversal == "dense" else cs.layout
+        return (self.nee, self.kind, self.traversal, self.max_depth,
+                vm._FASTMATH, os.environ.get("CRAYTPU_HITREC", "kernel"),
+                pcg.current_digit_steps(), trv.closest_hit,
+                hr.hitrec_record, dx.dense_hit,
+                tuple(t.data_ptr() for t in _tensors_in(cs)))
+
+    @contextlib.contextmanager
+    def _forward(self, n_passes: int):
+        """Around a forward render of passes below n_passes: the sampler's
+        fixed digit steps (pcg.pass_bound) and the graphs' context."""
+        with pcg.pass_bound(n_passes):
+            if self.graphs.on:
+                self.graphs.context(self._graph_context())
+            yield
+
+    # ------------------------------------------------------------------
+    # the per-pass trace: one dispatch of k bounces, then a compaction
+    # ------------------------------------------------------------------
+    def _trace_init(self, pool: Pool, final, xs, ys, pass_t,
+                    spp_t) -> None:
+        """trace_batch's primaries into the static pool: every lane live,
+        lane ids 0..B-1, the radiance buffer zeroed."""
+        B = xs.shape[0]
+        o, d, s = self._init_rays(xs, ys, pass_t, spp_t)
+        lane = torch.arange(B, dtype=torch.int32, device=o.device)
+        _assign(pool, Pool(o, d, torch.ones_like(pool.weight), s,
+                           torch.ones_like(pool.alive), lane,
+                           pass_t.expand(B), torch.zeros_like(lane),
+                           torch.zeros_like(pool.delta)))
+        final.zero_()
+
+    def _multi_step(self, k: int, pool: Pool, final) -> tuple:
+        """k bounces over the trace's pool, then the radiance deltas add
+        into the batch buffer `final` by lane (the JAX package's
+        _multi_step, one dispatch). Returns (the static pool, the live
+        count as a device tensor)."""
+        st = self._as_static(pool)
+
+        def multi():
+            o, d, weight, delta, s, alive, pdepth = self._bounces(
+                k, st.o, st.d, st.weight, torch.zeros_like(st.weight),
+                st.s, st.alive, st.pdepth)
+            _scatter_add(final, st.lane, delta)
+            _assign(st, Pool(o, d, weight, s, alive, st.lane, st.lpass,
+                             pdepth, st.delta))
+            self._n_live.copy_(alive.sum())
+        B = st.alive.shape[0]
+        self.graphs(("multi", B, k), multi, (final,))
+        return st, self._n_live
 
     def _key_consts_for(self, top: float):
         """(lo, top / extent) of the scene's root box, f32 on the device:
@@ -452,45 +626,66 @@ class WavefrontRenderer:
                              device=self.device))
         return self._key_consts[top]
 
-    def _compact(self, o, d, weight, s, alive, lane, pdepth, Bn: int):
+    def _compact(self, pool: Pool, Bn: int) -> Pool:
         """Sort the wavefront by a spatial key (dead lanes last, stable)
-        and keep the first Bn lanes (the JAX package's _make_compact)."""
-        lo, inv_ext = self._key_consts_for(127.0)
-        # clamp to [0, 127] (and mask, so a NaN origin cannot escape the
-        # live key range)
-        q = torch.clamp((o - lo) * inv_ext, 0.0, 127.0).long() & 0x7F
-        octant = ((d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long()
-                  + 4 * (d[:, 2] < 0).long())
-        key = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
-               | (_spread3(q[:, 2]) << 2)) | (octant << 21)
-        key = torch.where(alive, key, 0xFFFFFFFF)
-        order = torch.argsort(key, stable=True)[:Bn]
-        return (o[order], d[order], weight[order], s.index(order),
-                lane[order], pdepth[order])
+        and keep the first Bn lanes (the JAX package's _make_compact, one
+        dispatch): the static pool of width Bn. Its live lanes are the
+        first n_alive (Bn >= n_alive)."""
+        st = self._as_static(pool)
+        out = self._static_pool(Bn)
+
+        def compact():
+            lo, inv_ext = self._key_consts_for(127.0)
+            o, d = st.o, st.d
+            # clamp to [0, 127] (and mask, so a NaN origin cannot escape
+            # the live key range)
+            q = torch.clamp((o - lo) * inv_ext, 0.0, 127.0).long() & 0x7F
+            octant = ((d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long()
+                      + 4 * (d[:, 2] < 0).long())
+            key = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
+                   | (_spread3(q[:, 2]) << 2)) | (octant << 21)
+            key = torch.where(st.alive, key, 0xFFFFFFFF)
+            order = torch.argsort(key, stable=True)[:Bn]
+            _assign(out, self._permute_pool(order, st))
+        self.graphs(("compact", st.alive.shape[0], Bn), compact)
+        return out
 
     def trace_batch(self, xs, ys, pass_idx: int, spp: int):
         """Trace one pass for a flat batch of pixel coords -> (B, 4)."""
         B = xs.shape[0]
-        o, d, s = self._init_rays(xs, ys, pass_idx, spp)
         if self.empty_scene or self.max_depth == 0:
+            o, d, s = self._init_rays(xs, ys, pass_idx, spp)
             if self.max_depth == 0:
                 return o.new_zeros(B, 4)
             return self.bg_fn(self.cscene.params, d)
+        with self._forward(max(spp, pass_idx + 1)):
+            return self._trace_batch(xs, ys, pass_idx, spp)
 
-        weight = o.new_ones(B, 4)
-        final = o.new_zeros(B, 4)
-        alive = torch.ones(B, dtype=torch.bool, device=o.device)
-        lane = torch.arange(B, device=o.device)
-        pdepth = torch.zeros(B, dtype=torch.int32, device=o.device)
+    def _trace_batch(self, xs, ys, pass_idx: int, spp: int):
+        B = xs.shape[0]
+        if B not in self._batch:
+            dev = self.device
+            self._batch[B] = (torch.zeros(B, dtype=torch.int32, device=dev),
+                              torch.zeros(B, dtype=torch.int32, device=dev),
+                              torch.zeros((B, 4), device=dev))
+        xs_st, ys_st, final = self._batch[B]
+        xs_st.copy_(xs)
+        ys_st.copy_(ys)
+        pool = self._static_pool(B)
+        pass_t = self._scalar("pass", pass_idx)
+        spp_t = self._scalar("spp", spp)
+        self.graphs(("init", B),
+                    lambda: self._trace_init(pool, final, xs_st, ys_st,
+                                             pass_t, spp_t))
         depth = 0
         while depth < self.max_depth:
-            Bc = alive.shape[0]
+            Bc = pool.alive.shape[0]
             # more bounces between compactions as the wavefront shrinks
             k = 1 if Bc > 32768 else (4 if Bc > 4096 else 8)
             k = min(k, self.max_depth - depth)
-            o, d, weight, s, alive, pdepth, n_alive = self._multi_step(
-                k, o, d, weight, s, alive, pdepth, final, lane)
+            pool, n_live = self._multi_step(k, pool, final)
             depth += k
+            n_alive = int(n_live)
             if n_alive == 0:
                 break
             # quarter-step buckets (Bc/4, Bc/16, ...)
@@ -498,10 +693,9 @@ class WavefrontRenderer:
             Bn = Bc
             while Bn // 4 >= need:
                 Bn //= 4
-            o, d, weight, s, lane, pdepth = self._compact(
-                o, d, weight, s, alive, lane, pdepth, Bn)
-            alive = torch.arange(Bn, device=o.device) < n_alive
-        return final
+            pool = self._compact(pool, Bn)
+        # the caller keeps the result; the buffer is the next call's
+        return final.clone()
 
     # ------------------------------------------------------------------
     # the differentiable trace
@@ -534,8 +728,10 @@ class WavefrontRenderer:
         B = xs.shape[0]
         off, on = self._rr_flags()
         max_live = np.zeros(depth, np.int64)
-        with torch.no_grad():
-            for p in (range(spp) if passes is None else passes):
+        passes = list(range(spp) if passes is None else passes)
+        bound = max([spp] + [int(p) + 1 for p in passes])
+        with torch.no_grad(), pcg.pass_bound(bound):
+            for p in passes:
                 o, d, s = self._init_rays(xs, ys, int(p), int(spp))
                 weight = o.new_ones(B, 4)
                 final = o.new_zeros(B, 4)
@@ -604,6 +800,11 @@ class WavefrontRenderer:
         cs = self.cscene
 
         def _trace(params, tri_packed, xs, ys, pass_idx, spp):
+            with pcg.pass_bound(max(int(spp), int(pass_idx) + 1)):
+                return _trace_pass(params, tri_packed, xs, ys, pass_idx,
+                                   spp)
+
+        def _trace_pass(params, tri_packed, xs, ys, pass_idx, spp):
             B = xs.shape[0]
             o, d, s = self._init_rays(xs, ys, int(pass_idx), int(spp))
             if self.empty_scene or depth == 0:
@@ -709,15 +910,22 @@ class WavefrontRenderer:
     # persistent wavefront: the pool stays full across tiles AND passes
     # ------------------------------------------------------------------
     def _pool_step(self, k: int, pool: Pool):
-        """k bounces over the persistent pool. Radiance sums into the
-        per-lane delta (flushed to the framebuffer only at refill and
-        shrink boundaries). Returns (pool, live count as a device tensor);
-        nothing here waits for the device."""
-        o, d, weight, delta, s, alive, pdepth = self._bounces(
-            k, pool.o, pool.d, pool.weight, pool.delta, pool.s, pool.alive,
-            pool.pdepth)
-        return (Pool(o, d, weight, s, alive, pool.lane, pool.lpass, pdepth,
-                     delta), alive.sum())
+        """k bounces over the persistent pool in one dispatch (the JAX
+        package's _pool_step). Radiance sums into the per-lane delta
+        (flushed to the framebuffer only at refill and shrink
+        boundaries). Returns (the static pool, its live count as a device
+        tensor); nothing here waits for the device."""
+        st = self._as_static(pool)
+
+        def step():
+            o, d, weight, delta, s, alive, pdepth = self._bounces(
+                k, st.o, st.d, st.weight, st.delta, st.s, st.alive,
+                st.pdepth)
+            _assign(st, Pool(o, d, weight, s, alive, st.lane, st.lpass,
+                             pdepth, delta))
+            self._n_live.copy_(alive.sum())
+        self.graphs(("pool", st.alive.shape[0], k), step)
+        return st, self._n_live
 
     @property
     def _sched_dev(self):
@@ -740,19 +948,32 @@ class WavefrontRenderer:
                     lpass, torch.zeros(n, dtype=torch.int32, device=o.device),
                     o.new_zeros(n, 4))
 
-    def _prime_dev(self, B: int, qpix: int, qpass: int, take_n: int,
-                   spp: int) -> Pool:
-        """B fresh primaries generated on the device for the queue entries
+    def _fresh_dev(self, n: int, qpix, qpass, take_n, spp) -> Pool:
+        """n fresh primaries generated on the device for the queue entries
         from (pass qpass, schedule index qpix) on; lanes at or past take_n
-        are dead. The initial pool fill, and the fresh block of every
-        contiguous-range refill."""
+        are dead. The four are 0-d int32 device tensors."""
         npix = self.width * self.height
-        i = torch.arange(B, dtype=torch.int32, device=self.device)
+        i = torch.arange(n, dtype=torch.int32, device=self.device)
         px_i = i + qpix
         fpass = px_i // npix + qpass
         rows = self._sched_dev[px_i % npix]
         o, d, s = self._init_rays(rows[:, 0], rows[:, 1], fpass, spp)
         return self._fresh_pool(o, d, s, rows[:, 2], fpass, i < take_n)
+
+    def _queue_scalars(self, qpix: int, qpass: int, take_n: int,
+                       spp: int) -> tuple:
+        return (self._scalar("qpix", qpix), self._scalar("qpass", qpass),
+                self._scalar("take_n", take_n), self._scalar("spp", spp))
+
+    def _prime_dev(self, B: int, qpix: int, qpass: int, take_n: int,
+                   spp: int) -> Pool:
+        """The static pool of width B filled with fresh primaries from the
+        queue (_fresh_dev), in one dispatch: the initial pool fill."""
+        st = self._static_pool(B)
+        q = self._queue_scalars(qpix, qpass, take_n, spp)
+        self.graphs(("prime", B),
+                    lambda: _assign(st, self._fresh_dev(B, *q)))
+        return st
 
     def _morton_key(self, o, d, alive):
         """Spatial+octant sort key of the pool: octant-major, then a
@@ -780,17 +1001,18 @@ class WavefrontRenderer:
     def _flush_pack(self, B: int, n: int, final, pool: Pool) -> Pool:
         """Morton-sort the pool (dead lanes last), then flush the radiance
         of the last n lanes, which are dead (n_alive <= B - n by the
-        lagged live count), into the framebuffer sum `final`."""
+        lagged live count), into the framebuffer sum `final`. Returns the
+        sorted pool (new tensors)."""
         order = torch.argsort(self._morton_key(pool.o, pool.d, pool.alive),
                               stable=True)
         pool = self._permute_pool(order, pool)
-        final.index_add_(0, pool.lane[B - n:], pool.delta[B - n:])
+        _scatter_add(final, pool.lane[B - n:], pool.delta[B - n:])
         return pool
 
     def _flush_pack_refill(self, B: int, m: int, Q: int, final, pool: Pool,
                            qpix: int, qpass: int, take_n: int,
                            spp: int) -> Pool:
-        """At a refill boundary:
+        """At a refill boundary, one dispatch:
           1. Morton/octant sort the pool (dead lanes last): spatially
              coherent rays keep K2's walks short on bounced rays
           2. add the radiance deltas of ONLY the dead tail lanes being
@@ -800,44 +1022,67 @@ class WavefrontRenderer:
              ride until a later refill overwrites them.
           3. generate m*Q fresh primaries on the device from the queue
              position (no host round trip) and put them in the tail.
-        """
-        pool = self._flush_pack(B, m * Q, final, pool)
-        _set_tail(pool, B - m * Q,
-                  self._prime_dev(m * Q, qpix, qpass, take_n, spp))
-        return pool
+        Returns the static pool."""
+        st = self._as_static(pool)
+        q = self._queue_scalars(qpix, qpass, take_n, spp)
+
+        def fpr():
+            packed = self._flush_pack(B, m * Q, final, st)
+            _set_tail(packed, B - m * Q, self._fresh_dev(m * Q, *q))
+            _assign(st, packed)
+        self.graphs(("fpr", B, m, Q), fpr, (final,))
+        return st
 
     def _flush_pack_refill_host(self, B: int, m: int, Q: int, final,
                                 pool: Pool, fresh: Pool) -> Pool:
         """Like _flush_pack_refill but takes host-prepared fresh rays —
         used only when resuming with re-enqueued pending paths (whose ids
-        are not a contiguous queue range)."""
-        pool = self._flush_pack(B, m * Q, final, pool)
-        _set_tail(pool, B - m * Q, fresh)
-        return pool
+        are not a contiguous queue range) and for a group's host-split
+        queue. It stays eager: its fresh lanes are built on the host a
+        call, a copy from the host that a graph would replay unchanged.
+        Returns the static pool."""
+        st = self._as_static(pool)
+        packed = self._flush_pack(B, m * Q, final, st)
+        _set_tail(packed, B - m * Q, fresh)
+        _assign(st, packed)
+        return st
 
     def _final_flush(self, final, pool: Pool) -> None:
-        """Add the radiance of every DEAD lane into `final` (in place).
-        Live lanes are in-flight paths whose partial sums must not reach
-        the framebuffer: an interrupt checkpoint re-enqueues them."""
-        final.index_add_(0, pool.lane,
-                         torch.where(pool.alive[:, None], 0.0, pool.delta))
+        """Add the radiance of every DEAD lane into `final` (in place), in
+        one dispatch. Live lanes are in-flight paths whose partial sums
+        must not reach the framebuffer: an interrupt checkpoint
+        re-enqueues them."""
+        st = self._as_static(pool)
+        self.graphs(("flush", st.alive.shape[0]),
+                    lambda: _scatter_add(final, st.lane, torch.where(
+                        st.alive[:, None], 0.0, st.delta)), (final,))
 
     def _pack_shrink(self, Bn: int, final, pool: Pool) -> Pool:
         """Flush dead lanes' radiance, Morton-sorted alive-first pack,
-        then truncate the pool to Bn lanes (drain phase). The flush must
-        happen HERE: truncation drops dead lanes."""
-        self._final_flush(final, pool)
-        delta = torch.where(pool.alive[:, None], pool.delta, 0.0)
-        order = torch.argsort(self._morton_key(pool.o, pool.d, pool.alive),
-                              stable=True)[:Bn]
-        return self._permute_pool(order, replace(pool, delta=delta))
+        then truncate the pool to Bn lanes (drain phase), in one dispatch:
+        reads the static pool of the current width, writes that of width
+        Bn. The flush must happen HERE: truncation drops dead lanes."""
+        st = self._as_static(pool)
+        out = self._static_pool(Bn)
+
+        def shrink():
+            _scatter_add(final, st.lane,
+                         torch.where(st.alive[:, None], 0.0, st.delta))
+            delta = torch.where(st.alive[:, None], st.delta, 0.0)
+            order = torch.argsort(self._morton_key(st.o, st.d, st.alive),
+                                  stable=True)[:Bn]
+            _assign(out, self._permute_pool(order, replace(st, delta=delta)))
+        self.graphs(("shrink", st.alive.shape[0], Bn), shrink, (final,))
+        return out
 
     def _drain_all(self, pool: Pool) -> tuple:
-        """Run the pool to extinction: steps of 8 bounces until no lane
-        is alive, checked once a step. A step changes nothing for a dead
-        lane (its radiance, throughput, ray and sampler are all masked),
-        so the extra bounces of the last step do not change the image.
-        Returns (pool, the number of steps)."""
+        """Run the pool to extinction: replays of the 8-bounce step until
+        no lane is alive, checked once a step (the JAX package's one
+        while_loop dispatch; here the host loop and its one read a step
+        stay). A step changes nothing for a dead lane (its radiance,
+        throughput, ray and sampler are all masked), so the extra bounces
+        of the last step do not change the image. Returns (pool, the
+        number of steps)."""
         n = 0
         while True:
             pool, _ = self._pool_step(8, pool)
@@ -960,6 +1205,20 @@ class WavefrontRenderer:
         flushed, or the interrupted tuple of render_persistent. In a
         group of ranks every decision (refill, shrink, drain, stop) is
         the group's, so all ranks step in lockstep."""
+        with self._forward(spp):
+            fb = self._framebuffer(final)
+            out = self._pool_loop(B, Q, spp, feed, fb, total, progress,
+                                  interrupt, on_frame, final)
+            if fb is not final and not isinstance(out, tuple):
+                final.copy_(fb)
+                return final
+            return out
+
+    def _pool_loop(self, B: int, Q: int, spp: int, feed, fb, total: int,
+                   progress, interrupt, on_frame, final):
+        """_run_pool's loop, summing into fb (_framebuffer). Every pool
+        dispatch reads and writes the static pools (_static_pool), so a
+        Pool from a dispatch stays valid only until the next one."""
         dev = self.device
         k_env = os.environ.get("CRAYTPU_POOL_K")
         k = int(k_env) if k_env else 1
@@ -998,7 +1257,7 @@ class WavefrontRenderer:
                 progress(max(total - feed.left_total()
                              - D * min(stale_n, Bc), 0), total)
             if stop:
-                return self._persistent_interrupt(final, pool, feed)
+                return self._persistent_interrupt(fb, pool, feed)
 
             if feed.left() > 0 and Bc == B and stale_n <= B - Q:
                 # refill on the LAGGED count: it only overestimates the
@@ -1014,13 +1273,13 @@ class WavefrontRenderer:
                     _, lo, live, _ = block
                     npix = self.width * self.height
                     pool = self._flush_pack_refill(
-                        B, m, Q, final, pool, lo % npix, lo // npix, live,
+                        B, m, Q, fb, pool, lo % npix, lo // npix, live,
                         spp)
                 else:
                     # resume path: non-contiguous re-enqueued ids go
                     # through the host-side fresh-ray builder
                     pool = self._flush_pack_refill_host(
-                        B, m, Q, final, pool,
+                        B, m, Q, fb, pool,
                         self._host_lanes(block[1], m * Q, spp))
                 took = block[3]
                 stats.add("refill", ("refill", m))
@@ -1029,6 +1288,10 @@ class WavefrontRenderer:
                     e[1] += took
                 stale_n += took
                 if on_frame is not None:
+                    # the hook may keep `final`: it is the caller's
+                    # tensor, never a static buffer a replay overwrites
+                    if fb is not final:
+                        final.copy_(fb)
                     on_frame(final, total - feed.left_total())
             elif feed.left() == 0:
                 # drain: exact count, early exit, shrink buckets
@@ -1043,7 +1306,7 @@ class WavefrontRenderer:
                     Bn //= 4
                 if Bn < Bc:
                     stats.start()
-                    pool = self._pack_shrink(Bn, final, pool)
+                    pool = self._pack_shrink(Bn, fb, pool)
                     stats.add("shrink", ("shrink", Bn))
                 if pool.alive.shape[0] <= self.DRAIN_DEV_MAX \
                         and interrupt is None:
@@ -1052,10 +1315,10 @@ class WavefrontRenderer:
                     pool, n = self._drain_all(pool)
                     stats.add("step", ("drain_all", pool.alive.shape[0]), n)
                     break
-        self._final_flush(final, pool)
+        self._final_flush(fb, pool)
         if stats.on:
             self.pool_stats = stats.report(B, total)
-        return final
+        return fb
 
     def fetch_partial(self, final) -> np.ndarray:
         """Host copy of the in-progress radiance-sum frame (npix, 4) —

@@ -252,14 +252,19 @@ def launch(name: str, fn, *args, size: int) -> None:
     """Call a kernel's C entry point and raise if it returned a CUDA error
     (its cudaGetLastError after the launch). Under launch_timing(), CUDA
     events are recorded on the current stream around the launch, filed
-    with its batch `size`."""
-    if _TIMING is not None:
+    with its batch `size`, unless the stream is being captured into a
+    CUDA graph (a replay records no events; its launches are timed by
+    the profiler)."""
+    timed = _TIMING is not None
+    if timed:
         import torch
+        timed = not torch.cuda.is_current_stream_capturing()
+    if timed:
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
     err = fn(*args)
-    if _TIMING is not None:
+    if timed:
         ev[1].record()
         _TIMING.setdefault(name, []).append((size, ev))
     if err != 0:

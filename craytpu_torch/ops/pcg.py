@@ -14,6 +14,9 @@ so that no intermediate exceeds 2^63. Semantics mirror:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 M32 = 0xFFFFFFFF
@@ -154,15 +157,41 @@ def radical_inverse(pass_idx, base: int):
     return radical_inverse_dyn(pass_idx, torch.full_like(pass_idx, base))
 
 
+# the digit steps radical_inverse_dyn runs: set by pass_bound() around a
+# render whose largest pass the host knows, else every int32 pass (31)
+_STEPS = contextvars.ContextVar("craytpu_torch_digit_steps", default=31)
+
+
+@contextlib.contextmanager
+def pass_bound(n_passes: int):
+    """Within the block, radical_inverse_dyn runs the digit steps of
+    passes below n_passes (a render's spp): the bits of the largest pass,
+    which exhaust its digits in any base >= 2. A fixed count, so nothing
+    waits for the device and a CUDA graph can capture it."""
+    token = _STEPS.set(max(int(n_passes) - 1, 0).bit_length())
+    try:
+        yield
+    finally:
+        _STEPS.reset(token)
+
+
+def current_digit_steps() -> int:
+    return _STEPS.get()
+
+
 def radical_inverse_dyn(pass_idx, base):
-    """PBRT radical inverse with a per-lane base. The digit loop runs
-    until EVERY lane's digits are exhausted; finished lanes hold their
-    values, so per-lane results match the scalar loop exactly."""
+    """PBRT radical inverse with a per-lane base, over a fixed count of
+    digit steps (pass_bound's, else 31), enough for every lane's pass.
+    A lane whose digits run out holds its values (the JAX package's
+    while_loop, craytpu/ops/pcg.py:176-205, runs until every lane's are
+    exhausted and holds them the same way), so each lane's result is the
+    scalar loop's whatever the count beyond its own digits."""
+    steps = _STEPS.get()
     inv_base = 1.0 / base.to(torch.float32)
     p = pass_idx.clone()
     rev = torch.zeros_like(p)
     inv_n = torch.ones(p.shape, dtype=torch.float32, device=p.device)
-    while bool((p > 0).any()):
+    for _ in range(steps):
         nxt = torch.div(p, base, rounding_mode="floor")
         digit = p - base * nxt
         active = p > 0
@@ -172,10 +201,17 @@ def radical_inverse_dyn(pass_idx, base):
     return torch.clamp_max(rev.to(torch.float32) * inv_n, 0.99999994)
 
 
+# HALTON_PRIMES as a tensor, made once per device and dtype (not a
+# host-to-device copy on every call)
+_PRIMES: dict = {}
+
+
 def halton_base(prime_idx):
-    primes = torch.tensor(HALTON_PRIMES, dtype=prime_idx.dtype,
-                          device=prime_idx.device)
-    return primes[prime_idx % len(HALTON_PRIMES)]
+    key = (prime_idx.device, prime_idx.dtype)
+    if key not in _PRIMES:
+        _PRIMES[key] = torch.tensor(HALTON_PRIMES, dtype=prime_idx.dtype,
+                                    device=prime_idx.device)
+    return _PRIMES[key][prime_idx % len(HALTON_PRIMES)]
 
 
 def halton_dimension(pass_idx, prime_idx, rnd_offset):

@@ -137,11 +137,25 @@ def _wants_grad(*xs) -> bool:
         torch.is_tensor(x) and x.requires_grad for x in xs)
 
 
+# constant tensors by (values, device, dtype): made at their first use,
+# then shared, so that no call copies a constant from the host (a copy
+# that a CUDA graph could not capture)
+_CONSTS: dict = {}
+
+
+def const(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tensor of `values` (a number or a tuple of numbers) on
+    `device`, made once. Callers must not write to it."""
+    key = (values, torch.device(device), dtype)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return _CONSTS[key]
+
+
 def _tensors(*xs):
     """Python scalars as f32 tensors beside the first tensor operand."""
     ref = next(x for x in xs if torch.is_tensor(x))
-    return tuple(x if torch.is_tensor(x)
-                 else torch.tensor(x, dtype=torch.float32, device=ref.device)
+    return tuple(x if torch.is_tensor(x) else const(float(x), ref.device)
                  for x in xs)
 
 

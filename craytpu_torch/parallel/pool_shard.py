@@ -61,9 +61,9 @@ class ShardedPoolRenderer(WavefrontRenderer):
 
     def __init__(self, cscene, kind: str = smp.RANDOM,
                  bounces: int | None = None, tile_rays: int | None = None,
-                 nee: bool = False):
+                 nee: bool = False, graphs: bool = True):
         super().__init__(cscene, kind=kind, bounces=bounces,
-                         tile_rays=tile_rays, nee=nee)
+                         tile_rays=tile_rays, nee=nee, graphs=graphs)
         self.D = self.n_ranks = dist.world_size()
         self.rank = dist.rank()
         dev = self.device
@@ -186,13 +186,15 @@ class ShardedPoolRenderer(WavefrontRenderer):
 
 def make_renderer(cscene, kind: str = smp.RANDOM,
                   bounces: int | None = None,
-                  tile_rays: int | None = None, nee: bool = False):
+                  tile_rays: int | None = None, nee: bool = False,
+                  graphs: bool = True):
     """The product's renderer factory: ShardedPoolRenderer when the
     process group has more than one rank, else the single-card
     WavefrontRenderer on the scene's device."""
     if dist.multi_rank():
         return ShardedPoolRenderer(cscene, kind=kind, bounces=bounces,
-                                   tile_rays=tile_rays, nee=nee)
+                                   tile_rays=tile_rays, nee=nee,
+                                   graphs=graphs)
     n = torch.cuda.device_count() if cscene.device.type == "cuda" else 0
     if n > 1:
         logging.info("%d CUDA devices visible; rendering on %s only. To "
@@ -200,4 +202,4 @@ def make_renderer(cscene, kind: str = smp.RANDOM,
                      "--nproc-per-node %d -m craytpu_torch ...", n,
                      cscene.device, n)
     return WavefrontRenderer(cscene, kind=kind, bounces=bounces,
-                             tile_rays=tile_rays, nee=nee)
+                             tile_rays=tile_rays, nee=nee, graphs=graphs)

@@ -5,13 +5,15 @@
 On stress_highpoly at 1920x1080, 4 spp (chip_smoke.py's main-path
 frame), prints:
 
-  - three persistent frames of one renderer: how many values of the
-    second and third differ from the first, bit for bit;
-  - for each index_add_ into the frame's radiance sum during the third
-    frame (one persistent flush each): the ids added, how many of them
-    repeat an id of the same call (two passes of one pixel), and how many
-    of those repeats carry a non-zero radiance (their float adds then
-    happen in the atomics' order);
+  - three persistent frames of one renderer (CUDA graphs): how many
+    values of the second and third differ from the first, bit for bit,
+    and how many differ in a frame of a renderer without graphs;
+  - for each flush into the frame's radiance sum during that eager frame
+    (wavefront_pt._scatter_add, one persistent flush each): the ids
+    added, how many of them repeat an id of the same call (two passes of
+    one pixel), and how many of those repeats carry a non-zero radiance
+    (their float adds then happen in the flush's fixed order, with no
+    atomics);
   - two per-pass frames: values that differ;
   - under CRAYTPU_DEBUG=1 (a host sync a bounce): a per-pass and a
     persistent frame, their wall seconds, and the values that differ
@@ -33,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as c  # noqa: E402
+from craytpu_torch.models import wavefront_pt  # noqa: E402
 from craytpu_torch.ops import cuda_build  # noqa: E402
 from craytpu_torch.parallel.pool_shard import make_renderer  # noqa: E402
 from craytpu_torch.scene.compile import compile_scene  # noqa: E402
@@ -55,28 +58,30 @@ def main() -> int:
     npix = c.W * c.H
 
     adds = []
-    index_add_ = torch.Tensor.index_add_
+    scatter_add = wavefront_pt._scatter_add
 
-    def counted(self, dim, index, src, *a, **k):
-        if self.shape[0] == npix:
+    def counted(final, index, src):
+        if final.shape[0] == npix:
             nz = (src != 0).any(1)
             adds.append((index.numel(),
                          index.numel() - torch.unique(index).numel(),
                          int(nz.sum()) - torch.unique(index[nz]).numel()))
-        return index_add_(self, dim, index, src, *a, **k)
+        return scatter_add(final, index, src)
 
-    frames = [ren.render_persistent(c.SPP) for _ in range(2)]
-    torch.Tensor.index_add_ = counted
+    frames = [ren.render_persistent(c.SPP) for _ in range(3)]
+    eager = make_renderer(cs, graphs=False)
+    wavefront_pt._scatter_add = counted
     try:
-        frames.append(ren.render_persistent(c.SPP))
+        frames.append(eager.render_persistent(c.SPP))
     finally:
-        torch.Tensor.index_add_ = index_add_
-    for i in (1, 2):
-        print(f"persistent frame 0 vs {i}: {differ(frames[0], frames[i])} "
-              f"of {frames[0].size} differ, max |d| "
+        wavefront_pt._scatter_add = scatter_add
+    for i in (1, 2, 3):
+        what = "the eager frame" if i == 3 else f"{i}"
+        print(f"persistent frame 0 vs {what}: {differ(frames[0], frames[i])}"
+              f" of {frames[0].size} differ, max |d| "
               f"{np.abs(frames[0] - frames[i]).max():.3e}", flush=True)
-    print("index_add_ calls into the frame (ids, repeated ids, repeated "
-          "ids with a non-zero radiance), those with repeats: "
+    print("flushes into the frame (ids, repeated ids, repeated ids with a "
+          "non-zero radiance), those with repeats: "
           f"{[x for x in adds if x[1] or x[2]]} of {len(adds)} calls",
           flush=True)
     per_pass = [ren.render(c.SPP) for _ in range(2)]

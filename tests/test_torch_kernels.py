@@ -396,3 +396,96 @@ def test_fast_variant_matches_fast_plain(scene, kernel, monkeypatch):
     assert torch.equal(got.inst, want.inst)
     assert torch.equal(got.prim, want.prim)
     assert_bits(got.t, want.t, "t")
+
+
+# ---- the forward dispatches as CUDA graphs (utils/graphs.py): a replay
+# runs the kernels and ops its capture recorded, so what it computes is
+# bit for bit what the eager path computes on the same inputs
+
+def card_renderer(name="stress_highpoly", graphs=True, **kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs")
+    from craytpu_torch.models.wavefront_pt import WavefrontRenderer
+    cs = compile_scene(load_scene_from_file(
+        os.path.join(ASSETS, f"{name}.json"),
+        {"width": 80, "height": 50, "samples": 4}), "cuda")
+    return WavefrontRenderer(cs, graphs=graphs, **kw)
+
+
+def assert_pools_equal(a, b):
+    for f in ("o", "d", "weight", "delta"):
+        assert_bits(getattr(a, f), getattr(b, f), f)
+    for f in ("alive", "lane", "lpass", "pdepth"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for f in ("pcg_hi", "pcg_lo", "curr_prime"):
+        assert torch.equal(getattr(a.s, f), getattr(b.s, f)), f
+
+
+def test_pool_step_replay_equals_eager_step():
+    """Two steps of one bounce from the same primed pool: the graph
+    renderer's second step is a replay; the pools stay bit-equal."""
+    g = card_renderer()
+    e = card_renderer(graphs=False)
+    pools = []
+    for r in (g, e):
+        with r._forward(4):
+            pool = r._prime_dev(4096, 0, 0, 4000, 4)
+            for _ in range(2):
+                pool, n = r._pool_step(1, pool)
+        pools.append((pool, int(n)))
+    torch.cuda.synchronize()
+    assert g.graphs.replays >= 1 and e.graphs.replays == 0
+    assert pools[0][1] == pools[1][1] > 0
+    assert_pools_equal(pools[0][0], pools[1][0])
+
+
+@pytest.mark.parametrize("path", ["persistent", "per_pass"])
+def test_graph_frame_equals_eager_frame(path):
+    """80x50, 4 spp: the graph renderer's second frame (all replays) is
+    bit-equal to its first and to the eager renderer's frame."""
+    g = card_renderer()
+    e = card_renderer(graphs=False)
+
+    def frame(r):
+        return (r.render_persistent(4) if path == "persistent"
+                else r.render(4))
+    first = frame(g)
+    caps = g.graphs.captures
+    second = frame(g)
+    assert g.graphs.captures == caps and g.graphs.replays > 0
+    np.testing.assert_array_equal(second.view(np.uint32),
+                                  first.view(np.uint32))
+    np.testing.assert_array_equal(second.view(np.uint32),
+                                  frame(e).view(np.uint32))
+
+
+def test_capture_under_fast_math(monkeypatch):
+    """CRAYTPU_FASTMATH (the fast kernel variants and the float layer's
+    plain forms) captures, and its replays equal its eager frame."""
+    monkeypatch.setattr(vm, "_FASTMATH", True)
+    g = card_renderer()
+    e = card_renderer(graphs=False)
+    g.render_persistent(4)
+    got = g.render_persistent(4)
+    assert g.graphs.replays > 0 and ("closest_hit", True) in cuda_build._LIBS
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  e.render_persistent(4).view(np.uint32))
+
+
+def test_replaced_params_recapture():
+    """A renderer whose cscene.params is replaced captures afresh, and
+    its image follows the new params (equal to an eager frame of them)."""
+    from dataclasses import replace
+    g = card_renderer("entry_scene")
+    before = g.render_persistent(2)
+    caps = g.graphs.captures
+    p = g.cscene.params
+    g.cscene.params = replace(p, colors=p.colors * 0.5,
+                              emission=p.emission * 2.0)
+    got = g.render_persistent(2)
+    assert g.graphs.captures > caps
+    assert not np.array_equal(got, before)
+    e = card_renderer("entry_scene", graphs=False)
+    e.cscene.params = g.cscene.params
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  e.render_persistent(2).view(np.uint32))
