@@ -140,13 +140,15 @@ Phases (any failure exits non-zero and prints no result line):
                on_frame, in turns with the frame without it, status.json
                and frame.png fetched during the render (the PNG decodes to
                1080x1920); the CLI with --trace in a subprocess (the trace
-               names closest_hit_kernel and hitrec_kernel; its size and the
+               names closest_hit_kernel and hitrec_kernel, and its
+               frames.json holds a profiled frame record; its size and the
                CLI's wall time); CRAYTPU_DEBUG=1 (eager): the clean
                per-pass and persistent frames bit-equal to the frames
                without it, their times, a NaN albedo and an out-of-range id raise;
-               CRAYTPU_POOL_STATS=1: the step, refill and shrink counts
-               equal phase 5's, and with CRAYTPU_POOL_SYNC=1 each phase's
-               wall time; `--test-perf` prints its five lines and
+               CRAYTPU_TRACE=1: the frame record's step, refill and
+               shrink counts equal phase 5's, no capture, each dispatch
+               kind's device ms and the longest idle gaps with the span
+               the host was in; `--test-perf` prints its five lines and
                `--tcount` a positive count.
   11. shard  — the renderer and the train step over a process group
                (craytpu_torch/parallel/dist.py, pool_shard.py, shard.py)
@@ -970,6 +972,18 @@ def host_timer(ren, name: str):
         delattr(ren, name)
 
 
+def capture_seconds(ren) -> dict:
+    """Host seconds of each graph capture (its key's first call: the
+    warm-up run and the capture) in ren's kept frame records, by key."""
+    out: dict = {}
+    for rec in ren.trace.frames:
+        for s in rec["spans"]:
+            if s["name"] == "graph.capture":
+                k = tuple(s["key"])
+                out[k] = out.get(k, 0.0) + (s["t1_ms"] - s["t0_ms"]) / 1e3
+    return out
+
+
 def key_name(key: tuple) -> tuple:
     """A graph's key without the context and buffer addresses GraphCache
     adds."""
@@ -1001,14 +1015,19 @@ def graph_vs_eager(torch, label: str, make, frame, spp: int = SPP,
     count."""
     rens = {"graphs": make(True), "eager": make(False)}
     out = {"label": label, "spp": spp}
-    for name, ren in rens.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame(ren, spp)
-        torch.cuda.synchronize()
-        out[f"first_s_{name}"] = time.perf_counter() - t0
-    st = rens["graphs"].graphs.stats()
-    caps = st["capture_s"]
+    # the first frames traced (CRAYTPU_TRACE=1): the captures' spans
+    os.environ["CRAYTPU_TRACE"] = "1"
+    try:
+        for name, ren in rens.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(ren, spp)
+            torch.cuda.synchronize()
+            out[f"first_s_{name}"] = time.perf_counter() - t0
+    finally:
+        del os.environ["CRAYTPU_TRACE"]
+    st = rens["graphs"].trace.snapshot()
+    caps = capture_seconds(rens["graphs"])
     out["captures_first"] = st["captures"]
     print(f"graphs {label}: first frame {out['first_s_graphs']:.2f} s with "
           f"{st['captures']} captures (eager first frame "
@@ -1018,14 +1037,14 @@ def graph_vs_eager(torch, label: str, make, frame, spp: int = SPP,
                   caps.items(), key=lambda kv: -kv[1])), flush=True)
     frames = {}
     for name, ren in rens.items():
-        before, c0 = ren.graphs.stats(), launch_counts()
+        before, c0 = ren.trace.snapshot(), launch_counts()
         torch.cuda.reset_peak_memory_stats()
         with host_timer(ren, host_fn) as acc:
             t0 = time.perf_counter()
             frames[name] = frame(ren, spp)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        after, c1 = ren.graphs.stats(), launch_counts()
+        after, c1 = ren.trace.snapshot(), launch_counts()
         n = {k: c1[k] - c0[k] for k in c0}
         rep = {k: after["replayed"].get(k if k != "hitrec" else
                                         "hitrec_record", 0)
@@ -2336,7 +2355,7 @@ DEBUG_SCENE = {
 
 
 def phase_tools(torch, pool_calls: dict) -> None:
-    """Phase 10: the live preview, --trace, debug mode, pool statistics
+    """Phase 10: the live preview, --trace, debug mode, the frame record
     and test dispatch, at 1080p on stress_highpoly (pool_calls: phase
     5's pool steps, refills and shrinks of the same frame)."""
     import threading
@@ -2424,12 +2443,17 @@ def phase_tools(torch, pool_calls: dict) -> None:
     names = {k: blob.count(v.encode()) for k, v in KERNEL_NAMES.items()}
     if not all(names.values()):
         fail(f"--trace: the trace does not name both kernels: {names}")
+    with open(os.path.join(tdir, "trc", "stress_highpoly_frames.json")) as f:
+        recs = json.load(f)["frames"]
+    if not (recs and recs[-1]["profiled"] and recs[-1]["counts"]["steps"]):
+        fail("--trace: no profiled frame record with pool steps")
     done = [ln for ln in res.stdout.splitlines() if "Finished" in ln]
     print(f"trace: CLI {' '.join(cmd[3:])}: exit 0 in {cli_s:.1f} s "
           f"(process start, scene load, profiler start and export "
           f"included); {done[-1] if done else ''}; trace "
           f"{len(blob) / 1e6:.1f} MB, kernel events "
-          f"{names}", flush=True)
+          f"{names}; frame record: {recs[-1]['counts']['steps']} steps, "
+          f"device ms {recs[-1]['device_ms']}", flush=True)
     del blob
 
     # ---- debug mode (eager, a check a bounce): the clean frame unchanged
@@ -2484,32 +2508,35 @@ def phase_tools(torch, pool_calls: dict) -> None:
           f"{bits['persistent']} (of {frames['persistent'].size}); NaN "
           f"albedo raised: {nan_msg}; bad id raised: {id_msg}", flush=True)
 
-    # ---- pool statistics: the counts equal phase 5's; per-phase walls
-    os.environ["CRAYTPU_POOL_STATS"] = "1"
+    # ---- the frame record: its counts equal phase 5's; device ms by kind
+    os.environ["CRAYTPU_TRACE"] = "1"
     try:
-        ren.render_persistent(SPP, fetch=False)
-        st = ren.pool_stats
-        want = (pool_calls["_pool_step"], pool_calls["_flush_pack_refill"]
-                + pool_calls["_flush_pack_refill_host"],
-                pool_calls["_pack_shrink"])
-        if (st["steps"], st["refills"], st["shrinks"]) != want:
-            fail(f"pool stats {st['steps']}/{st['refills']}/{st['shrinks']} "
-                 f"differ from phase 5's counts {want}")
-        os.environ["CRAYTPU_POOL_SYNC"] = "1"
         t0 = time.perf_counter()
         ren.render_persistent(SPP, fetch=False)
-        sync_s = time.perf_counter() - t0
-        ws = ren.pool_stats["phase_wall_s"]
+        traced_s = time.perf_counter() - t0
+        st = ren.trace.last
     finally:
-        os.environ.pop("CRAYTPU_POOL_STATS", None)
-        os.environ.pop("CRAYTPU_POOL_SYNC", None)
-    print(f"pool stats (CRAYTPU_POOL_STATS=1): {st['steps']} steps, "
-          f"{st['refills']} refills, {st['shrinks']} shrinks (= phase 5), "
-          f"occupancy {st['occupancy']:.3f}, "
-          f"{st['bounces_per_path']:.3f} lane-bounces a path; "
-          f"CRAYTPU_POOL_SYNC=1 frame {sync_s:.2f} s: step "
-          f"{ws['step']:.3f} s, refill {ws['refill']:.3f} s, shrink "
-          f"{ws['shrink']:.3f} s", flush=True)
+        del os.environ["CRAYTPU_TRACE"]
+    c = st["counts"]
+    want = (pool_calls["_pool_step"], pool_calls["_flush_pack_refill"]
+            + pool_calls["_flush_pack_refill_host"],
+            pool_calls["_pack_shrink"])
+    got = (c["steps"], c.get("refills", 0), c.get("shrinks", 0))
+    if got != want:
+        fail(f"frame record {got} (steps, refills, shrinks) differs from "
+             f"phase 5's counts {want}")
+    if c["captures"]:
+        fail(f"frame record: tracing captured {c['captures']} graphs")
+    gaps = sorted(st["gaps"], key=lambda g: -g["ms"])[:3]
+    print(f"frame record (CRAYTPU_TRACE=1): {got[0]} steps, {got[1]} "
+          f"refills, {got[2]} shrinks (= phase 5), occupancy "
+          f"{st['occupancy']:.3f}, {st['bounces_per_path']:.3f} "
+          f"lane-bounces a path; frame {traced_s:.2f} s; device ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              st["device_ms"].items(), key=lambda kv: -kv[1]))
+          + "; longest gaps " + ", ".join(
+              f"{g['ms']:.2f} ms in {g['span']} before {g['before']}"
+              for g in gaps), flush=True)
 
     # ---- test dispatch: --test-perf and --tcount
     for flags, check in ((["--test-perf"], lambda out: len(

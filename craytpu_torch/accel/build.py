@@ -16,11 +16,12 @@ from craytpu_torch.accel import bvh as bvh_mod
 from craytpu_torch.scene import transform as tf
 from craytpu_torch.scene.device import INST_MESH, INST_SPHERE
 from craytpu_torch.scene.types import SceneHost
-from craytpu_torch.utils import logging
+from craytpu_torch.utils import logging, trace
 
 F = np.float32
 
 
+@trace.setup("bvh.build")
 def build_accels(scene: SceneHost) -> None:
     # bottom-level BVHs (one per mesh; reference builds these in parallel
     # threads, scene.c:50-78 — host build here, replicated to devices later)

@@ -42,8 +42,9 @@ Options:
   Empty input reads the scene JSON from stdin.
   CRAYTPU_PLATFORM=cpu runs on the CPU (the default is the CUDA card).
   CRAYTPU_DEBUG=1 checks every bounce for non-finite values and every
-  hit id for its range; CRAYTPU_POOL_STATS=1 (and CRAYTPU_POOL_SYNC=1)
-  prints the persistent pool's accounting (and per-phase wall times).
+  hit id for its range; CRAYTPU_TRACE=1 traces every frame and prints
+  each one's record (the pool's accounting, device ms by dispatch, the
+  longest idle gaps) to stderr.
 """
 
 

@@ -23,7 +23,7 @@ import sys
 import time
 
 from craytpu_torch import args as cliargs
-from craytpu_torch.utils import logging
+from craytpu_torch.utils import logging, trace
 from craytpu_torch.version import REFERENCE_VERSION, __version__
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,6 +158,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     try:
         return _main(argv, device)
     finally:
+        trace.force(False)
         if joined:
             import torch.distributed
             torch.distributed.destroy_process_group()
@@ -213,6 +214,11 @@ def _main(argv: list[str] | None, device) -> int:
         from craytpu_torch.parallel import cluster
         return cluster.start_worker(port=opts.get("worker_port", 2222),
                                     device=device)
+
+    # --trace DIR: every frame and set-up span is traced (utils/trace.py)
+    # and its records written beside the profiler's trace
+    if opts.get("trace_dir"):
+        trace.force()
 
     # ---- load scene (main.c:21-27) ----
     overrides = cliargs.scene_overrides(opts)
@@ -501,11 +507,16 @@ def _main(argv: list[str] | None, device) -> int:
         render_ms = (time.perf_counter() - t0) * 1e3
     finally:
         if prof is not None:
-            path = _stop_trace(prof, trace_dir, scene.prefs.img_file_name)
-            logging.info("Wrote profiler trace %s", path)
+            for path in _stop_trace(prof, trace_dir,
+                                    scene.prefs.img_file_name, r.trace):
+                logging.info("Wrote %s", path)
         if preview_srv is not None:
             preview_srv.stop()
     logging.info("Finished render in %s", logging.smart_time(render_ms))
+    if trace.env_on():
+        # CRAYTPU_TRACE=1: each frame's record in a few lines
+        for rec in r.trace.frames:
+            print(trace.summary(rec), file=sys.stderr)
 
     # ---- write image (main.c:30, c-ray.c:85-111) ----
     if _rank0():
@@ -526,9 +537,15 @@ def _start_trace(device):
     return prof
 
 
-def _stop_trace(prof, trace_dir: str, name: str) -> str:
-    """Stop the trace and write it as <trace_dir>/<name>_trace.json."""
+def _stop_trace(prof, trace_dir: str, name: str, tracer) -> tuple:
+    """Stop the trace and write it as <trace_dir>/<name>_trace.json, and
+    the renderer's frame records with the process's set-up spans as
+    <trace_dir>/<name>_frames.json (utils/trace.py)."""
+    import json
     prof.stop()
     path = os.path.join(trace_dir, f"{name}_trace.json")
     prof.export_chrome_trace(path)
-    return path
+    frames = os.path.join(trace_dir, f"{name}_frames.json")
+    with open(frames, "w") as f:
+        json.dump(trace.to_json(tracer.frames), f)
+    return path, frames

@@ -43,8 +43,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import sys
-import time
 from dataclasses import dataclass, fields, is_dataclass, replace
 
 import numpy as np
@@ -64,6 +62,7 @@ from craytpu_torch.runtime.checkpoint import GidQueue
 from craytpu_torch.scene.compile import CompiledScene
 from craytpu_torch.utils.graphs import GraphCache
 from craytpu_torch.utils.torchsetup import debug_enabled
+from craytpu_torch.utils.trace import Tracer
 
 
 def _next_pow2(n: int) -> int:
@@ -178,82 +177,6 @@ def _count_value(handle) -> int:
     return int(buf)
 
 
-class _PoolStats:
-    """CRAYTPU_POOL_STATS=1: the persistent loop's accounting (the JAX
-    package's, wavefront_pt.py:1369-1390 and :1601-1620): pool steps,
-    refills and shrinks, average occupancy and lane-bounces a path, and a
-    histogram of dispatches by kind and width. Occupancy is the lagged
-    live count, an upper bound. CRAYTPU_POOL_SYNC=1 (profiling only) adds
-    each phase's wall time: the device is synchronised after every
-    dispatch, and the time from before the dispatch to the end of the
-    synchronisation counts, so the host's launch time is in it. The sync
-    stops the pipelining, so a frame under it is not a speed figure."""
-
-    def __init__(self, on: bool, sync: bool, device):
-        self.on = on
-        self.sync = on and sync
-        self.device = device
-        self.count = {"step": 0, "refill": 0, "shrink": 0}
-        self.wall = {"step": 0.0, "refill": 0.0, "shrink": 0.0}
-        self.hist: dict = {}
-        self.occ_sum = 0
-        self.lane_bounces = 0
-        self.t_start = time.perf_counter()
-        self._t0 = 0.0
-
-    def start(self) -> None:
-        """Before a dispatch."""
-        if self.sync:
-            self._t0 = time.perf_counter()
-
-    def add(self, phase: str, key, n: int = 1, live: int = 0,
-            k: int = 0) -> None:
-        """After the dispatch of n `phase`s (step, refill or shrink); a
-        step of k bounces over `live` lanes adds to occupancy. Under
-        CRAYTPU_POOL_SYNC, synchronise and add its wall time."""
-        if not self.on:
-            return
-        self.count[phase] += n
-        self.hist[key] = self.hist.get(key, 0) + n
-        self.occ_sum += live
-        self.lane_bounces += live * k
-        if not self.sync:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - self._t0
-        self.wall[phase] += dt
-        skey = key + ("s",)
-        self.hist[skey] = self.hist.get(skey, 0.0) + dt
-
-    def report(self, B: int, total: int) -> dict:
-        """Print the report to stderr; return it as a dict."""
-        wall = time.perf_counter() - self.t_start
-        n_steps = max(self.count["step"], 1)
-        out = {"wall_s": wall, "steps": self.count["step"],
-               "refills": self.count["refill"],
-               "shrinks": self.count["shrink"],
-               "occupancy": self.occ_sum / n_steps / B,
-               "lane_bounces": self.lane_bounces,
-               "bounces_per_path": self.lane_bounces / max(total, 1),
-               "hist": dict(self.hist)}
-        print(f"pool stats: {wall:.2f}s wall, {out['steps']} step "
-              f"dispatches (avg occupancy {out['occupancy']:.2f}), "
-              f"{out['refills']} refills, {out['shrinks']} shrinks, "
-              f"{self.lane_bounces / 1e6:.1f}M lane-bounces "
-              f"({out['bounces_per_path']:.2f}/path)", file=sys.stderr)
-        if self.sync:
-            out["phase_wall_s"] = dict(self.wall)
-            print(f"  phase wall: step {self.wall['step']:.2f}s  refill "
-                  f"{self.wall['refill']:.2f}s  shrink "
-                  f"{self.wall['shrink']:.2f}s", file=sys.stderr)
-        for hk in sorted(self.hist, key=str):
-            v = self.hist[hk]
-            print(f"  {hk}: " + (f"{v:.3f}s" if isinstance(v, float)
-                                 else str(v)), file=sys.stderr)
-        return out
-
-
 class WavefrontRenderer:
     """Render pipeline for one compiled scene + sampler kind, on the
     scene's device."""
@@ -309,8 +232,6 @@ class WavefrontRenderer:
         self.isect = Isect(cscene, traversal=self.traversal)
         # CRAYTPU_DEBUG: every bounce step checks its outputs (_check_finite)
         self._debug = debug_enabled()
-        # the last render_persistent's accounting under CRAYTPU_POOL_STATS
-        self.pool_stats = None
         self._sched = None
         self._sched_np = None
         self._sched_dev_t = None
@@ -319,9 +240,12 @@ class WavefrontRenderer:
         # card unless graphs=False (A/B runs and tests) or CRAYTPU_DEBUG
         # (whose checks read the device every bounce); the CPU runs the
         # same dispatches eagerly
-        self.graphs = GraphCache(
-            self.device, graphs and not self._debug,
-            lambda: (trv.closest_hit, hr.hitrec_record, dx.dense_hit))
+        # the frame records and dispatch counters (utils/trace.py):
+        # trace.frames, trace.last
+        self.trace = Tracer(self.device, lambda: (
+            trv.closest_hit, hr.hitrec_record, dx.dense_hit))
+        self.graphs = GraphCache(self.device, graphs and not self._debug,
+                                 self.trace)
         # the dispatches' static tensors: the pool of each width, the live
         # count, per-call numbers as 0-d device tensors, the persistent
         # loop's framebuffer sum and trace_batch's pixel coordinates and
@@ -877,17 +801,21 @@ class WavefrontRenderer:
         return self._sched
 
     def render_pass(self, accum, pass_idx: int, spp: int):
+        """One pass over the whole frame: the running mean with accum (a
+        frame of its own in self.trace)."""
         H, W = self.height, self.width
         xs, ys, flat, T = self._pixel_schedule
-        sample = accum.new_zeros(H * W, 4)
-        for t0 in range(0, xs.shape[0], T):
-            chunk = self.trace_batch(xs[t0:t0 + T], ys[t0:t0 + T],
-                                     pass_idx, spp)
-            # padded lanes re-trace pixel (0,0) with the same per-(pixel,
-            # pass) stream, so their duplicate writes carry the same value
-            sample[flat[t0:t0 + T]] = chunk
-        n = accum.new_tensor(float(pass_idx + 1))
-        return (accum * (n - 1.0) + sample.reshape(H, W, 4)) / n
+        with self.trace.frame():
+            sample = accum.new_zeros(H * W, 4)
+            for t0 in range(0, xs.shape[0], T):
+                chunk = self.trace_batch(xs[t0:t0 + T], ys[t0:t0 + T],
+                                         pass_idx, spp)
+                # padded lanes re-trace pixel (0,0) with the same
+                # per-(pixel, pass) stream, so their duplicate writes
+                # carry the same value
+                sample[flat[t0:t0 + T]] = chunk
+            n = accum.new_tensor(float(pass_idx + 1))
+            return (accum * (n - 1.0) + sample.reshape(H, W, 4)) / n
 
     def render(self, spp: int | None = None, progress=None,
                stop=None) -> np.ndarray:
@@ -1077,17 +1005,24 @@ class WavefrontRenderer:
 
     def _drain_all(self, pool: Pool) -> tuple:
         """Run the pool to extinction: replays of the 8-bounce step until
-        no lane is alive, checked once a step (the JAX package's one
-        while_loop dispatch; here the host loop and its one read a step
-        stay). A step changes nothing for a dead lane (its radiance,
-        throughput, ray and sampler are all masked), so the extra bounces
-        of the last step do not change the image. Returns (pool, the
-        number of steps)."""
+        no lane is alive, checked once a step by reading its live count
+        (the JAX package's one while_loop dispatch; here the host loop and
+        its one read a step stay). A step changes nothing for a dead lane
+        (its radiance, throughput, ray and sampler are all masked), so the
+        extra bounces of the last step do not change the image. Returns
+        (pool, the number of steps)."""
+        rec = self.trace.rec
         n = 0
         while True:
-            pool, _ = self._pool_step(8, pool)
+            with rec.span("pool_step"):
+                pool, n_live = self._pool_step(8, pool)
+            rec.step(8, pool.alive.shape[0], drain=True)
             n += 1
-            if not bool(pool.alive.any()):
+            with rec.span("count_wait"):
+                live = int(n_live)
+            rec.add("d2h_bytes", n_live.element_size())
+            rec.live(live)
+            if live == 0:
                 return pool, n
 
     def render_persistent(self, spp: int | None = None, progress=None,
@@ -1116,10 +1051,18 @@ class WavefrontRenderer:
         on_frame(final_sum, done): called after every refill with the
         framebuffer SUM on the device and the queue entries taken.
         fetch=False returns the frame on the device.
-        CRAYTPU_POOL_STATS=1 prints the loop's accounting to stderr at the
-        end and keeps it in self.pool_stats; CRAYTPU_POOL_SYNC=1 with it
-        adds the wall time of each phase (_PoolStats).
+        The frame is one record of self.trace when traced
+        (utils/trace.py: CRAYTPU_TRACE=1, the CLI's --trace, or a
+        profiler): spans upload (the resumed sum's copy to the card),
+        prime, pool_step, count_wait, refill, shrink, drain, flush and
+        fetch, the pool's counters and each dispatch's device interval.
         """
+        with self.trace.frame() as rec:
+            return self._render_persistent(rec, spp, progress, resume,
+                                           interrupt, on_frame, fetch)
+
+    def _render_persistent(self, rec, spp, progress, resume, interrupt,
+                           on_frame, fetch):
         spp = spp if spp is not None else self.cscene.prefs.sample_count
         H, W = self.height, self.width
         npix = H * W
@@ -1132,8 +1075,11 @@ class WavefrontRenderer:
         B = min(self.tile_rays, _next_pow2(npix))
         total = npix * spp
         if resume is not None:
-            final = torch.tensor(np.asarray(resume["final_sum"], np.float32),
-                                 device=dev).reshape(npix, 4)
+            with rec.span("upload", device=True):
+                final = torch.tensor(np.asarray(resume["final_sum"],
+                                                np.float32),
+                                     device=dev).reshape(npix, 4)
+            rec.add("h2d_bytes", final.nbytes)
             queue = GidQueue(pending=resume["pending"],
                              ranges=resume["ranges"])
         else:
@@ -1144,10 +1090,20 @@ class WavefrontRenderer:
                              interrupt, on_frame)
         if isinstance(out, tuple):
             return out
-        # divide by a tensor: on CUDA, tensor / python float multiplies
-        # by the reciprocal
-        final = (out / out.new_tensor(float(spp))).reshape(H, W, 4)
-        return final.cpu().numpy() if fetch else final
+        return self._fetch(rec, out, spp, fetch)
+
+    def _fetch(self, rec, out, spp: int, fetch: bool):
+        """The frame (H, W, 4): the framebuffer sum over spp, on the host
+        unless fetch is False (the span `fetch`)."""
+        with rec.span("fetch", device=True):
+            # divide by a tensor: on CUDA, tensor / python float
+            # multiplies by the reciprocal
+            final = (out / out.new_tensor(float(spp))).reshape(
+                self.height, self.width, 4)
+            if not fetch:
+                return final
+            rec.add("d2h_bytes", final.nbytes)
+            return final.cpu().numpy()
 
     # hooks of the pool loop that a group of ranks overrides
     # (parallel/pool_shard.py): one rank's values are the group's
@@ -1186,6 +1142,8 @@ class WavefrontRenderer:
             (ys_f[px].astype(np.int64) * self.width + xs_f[px]).astype(
                 np.int32), device=dev)
         falive = torch.tensor(np.arange(n) < took, device=dev)
+        self.trace.rec.add("h2d_bytes", sum(t.nbytes for t in (
+            xs, ys, passes, lane, falive)))
         return self._fresh_pool(o, d, s, lane, passes, falive)
 
     def _block_lanes(self, block, n: int, spp: int) -> Pool:
@@ -1205,12 +1163,14 @@ class WavefrontRenderer:
         flushed, or the interrupted tuple of render_persistent. In a
         group of ranks every decision (refill, shrink, drain, stop) is
         the group's, so all ranks step in lockstep."""
-        with self._forward(spp):
-            fb = self._framebuffer(final)
+        with self._forward(spp), self.trace.frame() as rec:
+            with rec.span("upload", device=True):
+                fb = self._framebuffer(final)
             out = self._pool_loop(B, Q, spp, feed, fb, total, progress,
                                   interrupt, on_frame, final)
             if fb is not final and not isinstance(out, tuple):
-                final.copy_(fb)
+                with rec.span("flush", device=True):
+                    final.copy_(fb)
                 return final
             return out
 
@@ -1219,35 +1179,43 @@ class WavefrontRenderer:
         """_run_pool's loop, summing into fb (_framebuffer). Every pool
         dispatch reads and writes the static pools (_static_pool), so a
         Pool from a dispatch stays valid only until the next one."""
-        dev = self.device
         k_env = os.environ.get("CRAYTPU_POOL_K")
         k = int(k_env) if k_env else 1
         force_k = bool(k_env)   # an explicit k also holds in the drain
-        stats = _PoolStats(bool(os.environ.get("CRAYTPU_POOL_STATS")),
-                           bool(os.environ.get("CRAYTPU_POOL_SYNC")), dev)
         D = self.n_ranks
+        rec = self.trace.rec
+        rec.add("paths", feed.left_total())
 
         # prime the pool — on the device from the queue head when the head
         # is a contiguous range (always, except pending-id resumes and
         # host-split queues)
         block = feed.take(B)
-        pool = self._block_lanes(block, B, spp)
+        with rec.span("prime", device=block[0] != "dev"):
+            pool = self._block_lanes(block, B, spp)
         stale_n = block[3]             # lagged upper bound on live lanes
-        counts: list = []              # in-flight [count handle, adjust]
+        # the record's accounting takes each step's live lanes on this
+        # rank from the reads below, the first step's from the prime
+        rec.live(block[2])
+        # in-flight [count handle, adjust, this rank's adjust]
+        counts: list = []
         while True:
             Bc = pool.alive.shape[0]
             # drain phase: more bounces a step as the pool shrinks
             kc = k if (force_k or Bc > 32768) else (4 if Bc > 4096 else 8)
-            stats.start()
-            pool, n_live = self._pool_step(kc, pool)
-            stats.add("step", ("step", Bc, kc), live=min(stale_n, Bc), k=kc)
-            counts.append([_count_to_host(n_live), 0])
+            with rec.span("pool_step"):
+                pool, n_live = self._pool_step(kc, pool)
+            counts.append([_count_to_host(n_live), 0, 0])
+            rec.add("d2h_bytes", n_live.element_size())
             # lag-1 count: read step i-1's count while the device runs
             # step i
             lagged = None
             if len(counts) >= 2:
-                handle, adj = counts.pop(0)
-                lagged = _count_value(handle) + adj
+                handle, adj, own = counts.pop(0)
+                with rec.span("count_wait"):
+                    n = _count_value(handle)
+                lagged = n + adj
+                rec.live(n + own)
+            rec.step(kc, Bc)
             # interrupt latency bound: poll once per step, not only at
             # refill boundaries
             lagged, stop = self._group_step(lagged, interrupt)
@@ -1267,26 +1235,29 @@ class WavefrontRenderer:
                         max((feed.left() + Q - 1) // Q, 1))
                 while m & (m - 1):
                     m &= m - 1
-                stats.start()
                 block = feed.take(m * Q)
-                if block[0] == "dev":
-                    _, lo, live, _ = block
-                    npix = self.width * self.height
-                    pool = self._flush_pack_refill(
-                        B, m, Q, fb, pool, lo % npix, lo // npix, live,
-                        spp)
-                else:
-                    # resume path: non-contiguous re-enqueued ids go
-                    # through the host-side fresh-ray builder
-                    pool = self._flush_pack_refill_host(
-                        B, m, Q, fb, pool,
-                        self._host_lanes(block[1], m * Q, spp))
-                took = block[3]
-                stats.add("refill", ("refill", m))
-                # counts issued before this refill undercount by took
+                with rec.span("refill", device=block[0] != "dev"):
+                    if block[0] == "dev":
+                        _, lo, live, _ = block
+                        npix = self.width * self.height
+                        pool = self._flush_pack_refill(
+                            B, m, Q, fb, pool, lo % npix, lo // npix, live,
+                            spp)
+                    else:
+                        # resume path: non-contiguous re-enqueued ids go
+                        # through the host-side fresh-ray builder
+                        with rec.span("refill.host_lanes", device=True):
+                            fresh = self._host_lanes(block[1], m * Q, spp)
+                        pool = self._flush_pack_refill_host(
+                            B, m, Q, fb, pool, fresh)
+                rec.add("refills")
+                rec.tally(("refill", m))
+                # counts issued before this refill undercount by what it
+                # took
                 for e in counts:
-                    e[1] += took
-                stale_n += took
+                    e[1] += block[3]
+                    e[2] += block[2]
+                stale_n += block[3]
                 if on_frame is not None:
                     # the hook may keep `final`: it is the caller's
                     # tensor, never a static buffer a replay overwrites
@@ -1295,8 +1266,11 @@ class WavefrontRenderer:
                     on_frame(final, total - feed.left_total())
             elif feed.left() == 0:
                 # drain: exact count, early exit, shrink buckets
-                handle, adj = counts[-1]
-                stale_n = self._group_count(_count_value(handle) + adj)
+                handle, adj, own = counts[-1]
+                with rec.span("count_wait"):
+                    n = _count_value(handle)
+                stale_n = self._group_count(n + adj)
+                rec.live(n + own)
                 counts.clear()
                 if stale_n == 0:
                     break
@@ -1305,19 +1279,18 @@ class WavefrontRenderer:
                 while Bn // 4 >= need:
                     Bn //= 4
                 if Bn < Bc:
-                    stats.start()
-                    pool = self._pack_shrink(Bn, fb, pool)
-                    stats.add("shrink", ("shrink", Bn))
+                    with rec.span("shrink"):
+                        pool = self._pack_shrink(Bn, fb, pool)
+                    rec.add("shrinks")
+                    rec.tally(("shrink", Bn))
                 if pool.alive.shape[0] <= self.DRAIN_DEV_MAX \
                         and interrupt is None:
                     # each rank drains its own pool: no collective inside
-                    stats.start()
-                    pool, n = self._drain_all(pool)
-                    stats.add("step", ("drain_all", pool.alive.shape[0]), n)
+                    with rec.span("drain"):
+                        pool, _ = self._drain_all(pool)
                     break
-        self._final_flush(fb, pool)
-        if stats.on:
-            self.pool_stats = stats.report(B, total)
+        with rec.span("flush"):
+            self._final_flush(fb, pool)
         return fb
 
     def fetch_partial(self, final) -> np.ndarray:

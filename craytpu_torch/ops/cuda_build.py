@@ -35,6 +35,8 @@ import shutil
 import subprocess
 import time
 
+from craytpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "craytpu_torch")
@@ -128,6 +130,7 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)
 
 
+@trace.setup("kernels.load")
 def build_all(names=KERNELS, variants=None) -> float:
     """Build every kernel library that is missing, one nvcc per source
     and variant (False: exact, True: fast; default: this process's),

@@ -111,10 +111,16 @@ class ShardedPoolRenderer(WavefrontRenderer):
         [r*P, (r+1)*P) of spp (P = ceil(spp/D)), or its part of a resumed
         queue. Same arguments and results as WavefrontRenderer's, the
         same frame on every rank; `resume` takes any persistent
-        checkpoint (either package's, any rank or device count)."""
+        checkpoint (either package's, any rank or device count). Each
+        rank keeps its own frame records (self.trace)."""
+        with self.trace.frame() as rec:
+            return self._render_group(rec, spp, progress, resume,
+                                      interrupt, on_frame, fetch)
+
+    def _render_group(self, rec, spp, progress, resume, interrupt,
+                      on_frame, fetch):
         spp = spp if spp is not None else self.cscene.prefs.sample_count
-        H, W = self.height, self.width
-        npix = H * W
+        npix = self.height * self.width
         dev = self.device
         if self.empty_scene or self.max_depth == 0 or spp < 1:
             return super().render_persistent(spp=spp, progress=progress)
@@ -125,9 +131,11 @@ class ShardedPoolRenderer(WavefrontRenderer):
             # rank 0 carries the resumed sum whole: the partials are only
             # ever summed
             if self.rank == 0:
-                final += torch.tensor(
-                    np.asarray(resume["final_sum"], np.float32),
-                    device=dev).reshape(npix, 4)
+                with rec.span("upload", device=True):
+                    final += torch.tensor(
+                        np.asarray(resume["final_sum"], np.float32),
+                        device=dev).reshape(npix, 4)
+                rec.add("h2d_bytes", final.nbytes)
             feed = _QueueFeed(GidQueue(pending=resume["pending"],
                                        ranges=resume["ranges"]),
                               self.rank, self.D)
@@ -139,8 +147,7 @@ class ShardedPoolRenderer(WavefrontRenderer):
         if isinstance(out, tuple):
             return out
         dist.all_reduce_sum_(out)
-        img = (out / out.new_tensor(float(spp))).reshape(H, W, 4)
-        return img.cpu().numpy() if fetch else img
+        return self._fetch(rec, out, spp, fetch)
 
     def render_pass(self, accum, pass_idx: int, spp: int):
         """One whole-frame pass over the group: rank r renders pixels

@@ -28,6 +28,7 @@ from craytpu_torch.ops.hitrec import build_wide_rows
 from craytpu_torch.scene.device import (Geometry, LightTable, ShadeGeom,
                                         INST_MESH, INST_SPHERE)
 from craytpu_torch.scene.types import Prefs, SceneHost
+from craytpu_torch.utils import trace
 from craytpu_torch.utils.torchsetup import resolve_device
 
 F = np.float32
@@ -287,6 +288,7 @@ def _nee_unwrap(ir):
     return None, None
 
 
+@trace.setup("scene.compile")
 def compile_scene(scene: SceneHost, device=None) -> CompiledScene:
     """Compile a loaded scene onto `device` (CUDA unless given)."""
     device = resolve_device(device)

@@ -24,7 +24,7 @@ from craytpu_torch.scene.types import (InstanceHost, MaterialHost, Prefs, SceneH
                                  BSDF_EMISSION, BSDF_GLASS, BSDF_LAMBERTIAN,
                                  BSDF_METAL, BSDF_PLASTIC)
 from craytpu_torch.scene.device import INST_MESH, INST_SPHERE
-from craytpu_torch.utils import logging
+from craytpu_torch.utils import logging, trace
 
 
 def _get(obj, key):
@@ -468,6 +468,7 @@ class _Loader:
                 ng.assign_bsdf(m)
 
 
+@trace.setup("scene.load")
 def load_scene_from_buf(text: str, asset_path: str = "",
                         overrides: dict | None = None) -> SceneHost:
     """crLoadSceneFromBuf -> loadScene -> parseJSON (scene.c:111-213)."""

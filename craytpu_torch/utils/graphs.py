@@ -24,40 +24,47 @@ Launch counters: a kernel wrapper counts a launch on the host (its
 `launches` attribute), so under a graph it would only count the capture.
 A capture therefore records the launches each counter took while it was
 captured, takes them back, and adds them again on every replay.
+
+Every call passes through __call__, which counts it by its key's kind
+(key[0]) in the renderer's tracer (utils/trace.py), and replays and
+captures with it; in a traced frame it also marks the call's interval on
+the device and spans each capture (`graph.capture`, with its key).
 """
 
 from __future__ import annotations
-
-import time
 
 
 class GraphCache:
     """The captured dispatches of one renderer, keyed as craytpu keys its
     `_multi_cache`, plus the context every capture bakes in (`context`).
 
-    counters(): the kernel wrappers whose `launches` a replay adds to,
-    looked up at each capture (a wrapper swapped for an A/B is the one
-    counted; one without a counter is skipped). `on` is fixed at
-    construction: False on the CPU whatever is asked."""
+    trace: the renderer's tracer (utils/trace.py), which counts the
+    calls, replays, captures and replayed launches; its counters(): the
+    kernel wrappers whose `launches` a replay adds to, looked up at each
+    capture (a wrapper swapped for an A/B is the one counted; one without
+    a counter is skipped). `on` is fixed at construction: False on the
+    CPU whatever is asked."""
 
-    def __init__(self, device, enabled: bool, counters):
+    def __init__(self, device, enabled: bool, trace):
         self._on = bool(enabled) and device.type == "cuda"
-        self.counters = counters
+        self.trace = trace
         # key + (context,) + buffer addresses -> (graph, launches a
         # replay adds)
         self.graphs: dict = {}
         self.ctx = None
         self.mempool = None
-        self.replays = 0
-        self.captures = 0
-        # launches the replays added, by wrapper name
-        self.replayed: dict = {}
-        # seconds of each key's first call (the warm-up run, the capture)
-        self.capture_s: dict = {}
 
     @property
     def on(self) -> bool:
         return self._on
+
+    @property
+    def replays(self) -> int:
+        return self.trace.replays
+
+    @property
+    def captures(self) -> int:
+        return self.trace.captures
 
     def context(self, ctx) -> None:
         """Set what the captures depend on beyond their key (flags, the
@@ -72,24 +79,28 @@ class GraphCache:
         it at the key's first call and replay it after. reads: tensors fn
         reads or writes that a caller passes in (the addresses a graph
         holds are part of its key)."""
-        if not self.on:
-            fn()
-            return
-        key = key + (self.ctx,) + tuple(t.data_ptr() for t in reads)
-        entry = self.graphs.get(key)
-        if entry is None:
-            self._capture(key, fn)
-            return
-        graph, launches = entry
-        graph.replay()
-        self.replays += 1
-        for c, n in launches:
-            c.launches += n
-            self.replayed[c.__name__] = self.replayed.get(c.__name__, 0) + n
+        tr = self.trace
+        kind = key[0]
+        tr.dispatches[kind] = tr.dispatches.get(kind, 0) + 1
+        with tr.rec.dispatch(kind):
+            if not self.on:
+                fn()
+                return
+            full = key + (self.ctx,) + tuple(t.data_ptr() for t in reads)
+            entry = self.graphs.get(full)
+            if entry is None:
+                with tr.span("graph.capture", key=key):
+                    self._capture(full, fn)
+                return
+            graph, launches = entry
+            graph.replay()
+            tr.replays += 1
+            for c, n in launches:
+                c.launches += n
+                tr.replayed[c.__name__] = tr.replayed.get(c.__name__, 0) + n
 
     def _capture(self, key: tuple, fn) -> None:
         import torch
-        t0 = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -97,7 +108,8 @@ class GraphCache:
         torch.cuda.current_stream().wait_stream(side)
         if self.mempool is None:
             self.mempool = torch.cuda.graph_pool_handle()
-        counters = [c for c in self.counters() if hasattr(c, "launches")]
+        counters = [c for c in self.trace.counters()
+                    if hasattr(c, "launches")]
         before = [c.launches for c in counters]
         graph = torch.cuda.CUDAGraph()
         try:
@@ -112,12 +124,4 @@ class GraphCache:
             for c, b in zip(counters, before):
                 c.launches = b
         self.graphs[key] = (graph, launches)
-        self.captures += 1
-        self.capture_s[key] = time.perf_counter() - t0
-
-    def stats(self) -> dict:
-        """Replays, captures and the launches replays added so far, and
-        the first-call seconds of each key."""
-        return {"replays": self.replays, "captures": self.captures,
-                "replayed": dict(self.replayed),
-                "capture_s": dict(self.capture_s)}
+        self.trace.captures += 1

@@ -4,7 +4,7 @@ build the pytest command (subprocess is replaced, so no pytest runs
 inside pytest), --test-perf runs the PNG microtest, --worker serves a
 master and --shutdown --nodes stops it, --nodes renders through a port
 worker in a thread, --preview-http serves status.json during a render,
-and --trace writes the trace JSON.
+and --trace writes the trace JSON and the frame records.
 
 Tolerance: the clustered PNG against the local CLI's PNG, the golden
 thresholds of craytpu/utils/golden.py:26-27 on sRGB u8
@@ -202,10 +202,12 @@ def test_preview_http_serves_status(tmp_path, monkeypatch):
     assert read_png_rgb(PNG).shape == (24, 32, 3)
 
 
-def test_trace_writes_chrome_json(tmp_path, monkeypatch):
+def test_trace_writes_chrome_json(tmp_path, monkeypatch, capsys):
     """--trace on one sphere (the CPU's plain BVH walk of a mesh makes a
-    trace of millions of events)."""
+    trace of millions of events): the chrome trace and the frame
+    records; with CRAYTPU_TRACE=1 the CLI prints each frame's record."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("CRAYTPU_TRACE", "1")
     scene = {
         "renderer": {"samples": 1, "bounces": 4, "width": 16, "height": 12,
                      "outputFilePath": "output/", "outputFileName": "ball",
@@ -223,5 +225,17 @@ def test_trace_writes_chrome_json(tmp_path, monkeypatch):
     with open(os.path.join("trc", "ball_trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    # the program's own spans sit in the profiler's trace, and the frame's
+    # record and the set-up spans beside it
+    assert {"frame", "pool_step", "fetch"} <= {e.get("name")
+                                               for e in events}
+    with open(os.path.join("trc", "ball_frames.json")) as f:
+        rec = json.load(f)
+    assert [r["profiled"] for r in rec["frames"]] == [True]
+    assert rec["frames"][0]["counts"]["steps"] > 0
+    assert {"scene.load", "scene.compile"} <= {
+        s["name"] for s in rec["process"]}
+    err = capsys.readouterr().err
+    assert "frame 1:" in err and "device ms: pool" in err
     assert read_png_rgb(os.path.join("output", "ball_0000.png")).shape == (
         12, 16, 3)

@@ -151,8 +151,8 @@ def test_scene_path(tmp_path):
 
 def test_sharded_pool_refills_by_a_quarter(group):
     """Each rank of a 2-rank group refills its pool of B lanes by
-    max(B // 4, 1), as craytpu's ShardedPoolRenderer: its pool statistics
-    account for every path of its share in quanta of B // 4 (the last
+    max(B // 4, 1), as craytpu's ShardedPoolRenderer: its frame record
+    accounts for every path of its share in quanta of B // 4 (the last
     refill takes what is left); the group's frame is the single-card
     frame within the resume tolerance."""
     out = group.result()
@@ -164,7 +164,7 @@ def test_sharded_pool_refills_by_a_quarter(group):
         assert (B, Q) == (TILE_RAYS, TILE_RAYS // 4)
         refills = [(k[1], n) for k, n in st["hist"].items()
                    if k[0] == "refill"]
-        assert st["refills"] == sum(n for _, n in refills) >= 3
+        assert st["counts"]["refills"] == sum(n for _, n in refills) >= 3
         fresh = sum(m * n for m, n in refills) * Q
         assert 0 <= fresh - (share - B) < 8 * Q
     with pytest.MonkeyPatch.context() as mp:

@@ -1,5 +1,5 @@
 """The port's live preview (runtime/preview.py, runtime/regions.py), debug
-mode (CRAYTPU_DEBUG), pool statistics (CRAYTPU_POOL_STATS/_SYNC) and the
+mode (CRAYTPU_DEBUG), the pool's frame record (CRAYTPU_TRACE) and the
 rest of the API, on the CPU, against the JAX package where it has the same
 function: the preview's PNG decodes to the RGB bytes of craytpu's
 PIL-encoded preview, and the region snapshots are equal to craytpu's for
@@ -220,14 +220,15 @@ def test_debug_census_overflow_raises(monkeypatch):
         r.make_trace_fn(compaction=sched)(cs.params, xs, ys, 0, 1)
 
 
-def test_pool_stats_count_the_loop(monkeypatch, capsys):
-    """CRAYTPU_POOL_STATS counts the pool steps, refills and shrinks that
-    the loop calls, and leaves the frame bit for bit; with
-    CRAYTPU_POOL_SYNC it adds each phase's wall time."""
+def test_pool_stats_count_the_loop(monkeypatch):
+    """CRAYTPU_TRACE's frame record counts the pool steps, refills and
+    shrinks that the loop calls, and leaves the frame bit for bit; each
+    dispatch's device interval (the host clock on the CPU) lies in the
+    frame's device span, in the order of the calls."""
     monkeypatch.setenv("CRAYTPU_POOL_K", "1")
     r = WavefrontRenderer(_cs(), tile_rays=64)
     want = r.render_persistent(2)
-    assert r.pool_stats is None
+    assert r.trace.last is None
     calls = {"_pool_step": 0, "_flush_pack_refill": 0, "_pack_shrink": 0}
     for name in calls:
         fn = getattr(r, name)
@@ -236,19 +237,21 @@ def test_pool_stats_count_the_loop(monkeypatch, capsys):
             calls[_name] += 1
             return _fn(*a)
         setattr(r, name, counted)
-    monkeypatch.setenv("CRAYTPU_POOL_STATS", "1")
+    monkeypatch.setenv("CRAYTPU_TRACE", "1")
     np.testing.assert_array_equal(r.render_persistent(2), want)
-    st = r.pool_stats
-    assert (st["steps"], st["refills"], st["shrinks"]) == (
+    st = r.trace.last
+    c = st["counts"]
+    assert (c["steps"], c["refills"], c.get("shrinks", 0)) == (
         calls["_pool_step"], calls["_flush_pack_refill"],
         calls["_pack_shrink"])
-    assert st["refills"] > 0 and 0 < st["occupancy"] <= 1
-    assert st["bounces_per_path"] > 0 and "phase_wall_s" not in st
-    assert "pool stats:" in capsys.readouterr().err
-    monkeypatch.setenv("CRAYTPU_POOL_SYNC", "1")
-    r.render_persistent(2)
-    assert r.pool_stats["phase_wall_s"]["step"] > 0
-    assert "phase wall: step" in capsys.readouterr().err
+    assert c["refills"] > 0 and 0 < st["occupancy"] <= 1
+    assert st["bounces_per_path"] > 0 and not st["profiled"]
+    ivs = [d["dev_ms"] for d in st["dispatches"]]
+    assert [d["kind"] for d in st["dispatches"]].count("pool") == c["steps"]
+    lo, hi = st["device_span_ms"]
+    assert all(lo <= a <= b <= hi for a, b in ivs)
+    assert all(b0 <= a1 for (_, b0), (a1, _) in zip(ivs, ivs[1:]))
+    assert st["device_ms"]["pool"] > 0
 
 
 def test_api_remainder():

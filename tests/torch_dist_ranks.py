@@ -92,21 +92,21 @@ def render_group(overrides: dict, tile_rays: int, spp_list, tile: int,
 
 def pool_quantum_group(overrides: dict, tile_rays: int, spp: int) -> dict:
     """The group's persistent frame of assets/entry_scene.json (k=1)
-    under CRAYTPU_POOL_STATS: the frame (rank 0), and every rank's pool
-    width B, refill quantum and pool statistics."""
+    under CRAYTPU_TRACE: the frame (rank 0), and every rank's pool width
+    B, refill quantum and frame record."""
     from craytpu_torch.models.wavefront_pt import _next_pow2
     from craytpu_torch.parallel import dist
     from craytpu_torch.parallel.pool_shard import make_renderer
     from craytpu_torch.scene.compile import compile_scene
     from craytpu_torch.scene.sceneloader import load_scene_from_file
     os.environ["CRAYTPU_POOL_K"] = "1"
-    os.environ["CRAYTPU_POOL_STATS"] = "1"
+    os.environ["CRAYTPU_TRACE"] = "1"
     cs = compile_scene(load_scene_from_file(ENTRY, overrides), "cpu")
     r = make_renderer(cs, tile_rays=tile_rays)
     frame = r.render_persistent(spp=spp)
     B = min(r.tile_rays, _next_pow2(r.width * r.height))
     return {"frame": frame if dist.rank() == 0 else None, "B": B,
-            "Q": r.refill_quantum(B), "stats": r.pool_stats,
+            "Q": r.refill_quantum(B), "stats": r.trace.last,
             "class": type(r).__name__}
 
 
