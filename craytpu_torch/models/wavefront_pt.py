@@ -157,26 +157,6 @@ def _tensors_in(x):
             yield from _tensors_in(v)
 
 
-def _count_to_host(n: torch.Tensor):
-    """Start copying a live count to the host without waiting for it: on
-    CUDA into pinned memory behind an event. Read it with _count_value.
-    (n is the renderer's static count, which the next step overwrites.)"""
-    if n.device.type != "cuda":
-        return n.clone(), None
-    buf = torch.empty((), dtype=n.dtype, pin_memory=True)
-    buf.copy_(n, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record()
-    return buf, ev
-
-
-def _count_value(handle) -> int:
-    buf, ev = handle
-    if ev is not None:
-        ev.synchronize()
-    return int(buf)
-
-
 class WavefrontRenderer:
     """Render pipeline for one compiled scene + sampler kind, on the
     scene's device."""
@@ -928,9 +908,9 @@ class WavefrontRenderer:
 
     def _flush_pack(self, B: int, n: int, final, pool: Pool) -> Pool:
         """Morton-sort the pool (dead lanes last), then flush the radiance
-        of the last n lanes, which are dead (n_alive <= B - n by the
-        lagged live count), into the framebuffer sum `final`. Returns the
-        sorted pool (new tensors)."""
+        of the last n lanes, which are dead (n_alive <= B - n by the live
+        count), into the framebuffer sum `final`. Returns the sorted pool
+        (new tensors)."""
         order = torch.argsort(self._morton_key(pool.o, pool.d, pool.alive),
                               stable=True)
         pool = self._permute_pool(order, pool)
@@ -1035,10 +1015,10 @@ class WavefrontRenderer:
         pass) streams as render(), same result up to float accumulation
         order.
 
-        The host loop is PIPELINED: the live count of step i is copied to
-        the host asynchronously and read one step late, so the host never
-        waits for the device between steps. The lagged count only ever
-        overestimates the live set, so refill decisions stay safe.
+        The host reads the live count of every step as it ends, and a
+        refill fills the pool up to it: m = min((B - n) // Q,
+        ceil(left / Q)) quanta of Q lanes whenever n <= B - Q, so a step
+        of the refill phase starts with fewer than Q dead lanes.
 
         resume: optional dict from a persistent checkpoint
         (runtime/checkpoint.py): {final_sum (npix,4), pending, ranges}
@@ -1115,14 +1095,10 @@ class WavefrontRenderer:
         pool_shard.py:534)."""
         return max(B // self.POOL_QDIV, 1)
 
-    def _group_step(self, lagged, interrupt):
-        """Once a pool step: (the lagged live count, or None before the
-        first one is read; whether to stop at an interrupt)."""
-        return lagged, interrupt is not None and bool(interrupt())
-
-    def _group_count(self, n: int) -> int:
-        """An exact live count at the drain."""
-        return n
+    def _group_step(self, n: int, interrupt):
+        """Once a pool step, given this rank's live count: (the group's
+        live count, whether to stop at an interrupt)."""
+        return n, interrupt is not None and bool(interrupt())
 
     def _host_lanes(self, ids, n: int, spp: int) -> Pool:
         """n fresh lanes built on the host from queue ids (at most n);
@@ -1192,49 +1168,36 @@ class WavefrontRenderer:
         block = feed.take(B)
         with rec.span("prime", device=block[0] != "dev"):
             pool = self._block_lanes(block, B, spp)
-        stale_n = block[3]             # lagged upper bound on live lanes
         # the record's accounting takes each step's live lanes on this
-        # rank from the reads below, the first step's from the prime
+        # rank from the count read after the step before it (the first
+        # step's from the prime)
         rec.live(block[2])
-        # in-flight [count handle, adjust, this rank's adjust]
-        counts: list = []
         while True:
             Bc = pool.alive.shape[0]
             # drain phase: more bounces a step as the pool shrinks
             kc = k if (force_k or Bc > 32768) else (4 if Bc > 4096 else 8)
             with rec.span("pool_step"):
                 pool, n_live = self._pool_step(kc, pool)
-            counts.append([_count_to_host(n_live), 0, 0])
             rec.add("d2h_bytes", n_live.element_size())
-            # lag-1 count: read step i-1's count while the device runs
-            # step i
-            lagged = None
-            if len(counts) >= 2:
-                handle, adj, own = counts.pop(0)
-                with rec.span("count_wait"):
-                    n = _count_value(handle)
-                lagged = n + adj
-                rec.live(n + own)
             rec.step(kc, Bc)
+            # the exact live count of the step just issued: the host waits
+            # for it once a step, so a refill fills every dead lane but
+            # the quantum's remainder
+            with rec.span("count_wait"):
+                own = int(n_live)
+            rec.live(own)
             # interrupt latency bound: poll once per step, not only at
             # refill boundaries
-            lagged, stop = self._group_step(lagged, interrupt)
-            if lagged is not None:
-                stale_n = lagged
+            n, stop = self._group_step(own, interrupt)
             if progress is not None:
-                progress(max(total - feed.left_total()
-                             - D * min(stale_n, Bc), 0), total)
+                progress(max(total - feed.left_total() - D * n, 0), total)
             if stop:
                 return self._persistent_interrupt(fb, pool, feed)
 
-            if feed.left() > 0 and Bc == B and stale_n <= B - Q:
-                # refill on the LAGGED count: it only overestimates the
-                # live set, so the tail lanes it clears are dead. m rounds
-                # down to a power of two.
-                m = min((B - stale_n) // Q, 8,
-                        max((feed.left() + Q - 1) // Q, 1))
-                while m & (m - 1):
-                    m &= m - 1
+            if feed.left() > 0 and Bc == B and n <= B - Q:
+                # n is exact, so the m*Q tail lanes the refill clears are
+                # dead
+                m = min((B - n) // Q, (feed.left() + Q - 1) // Q)
                 block = feed.take(m * Q)
                 with rec.span("refill", device=block[0] != "dev"):
                     if block[0] == "dev":
@@ -1251,13 +1214,10 @@ class WavefrontRenderer:
                         pool = self._flush_pack_refill_host(
                             B, m, Q, fb, pool, fresh)
                 rec.add("refills")
+                # the dead lanes this rank's refill left unfilled
+                rec.add("refill_short", B - own - m * Q)
                 rec.tally(("refill", m))
-                # counts issued before this refill undercount by what it
-                # took
-                for e in counts:
-                    e[1] += block[3]
-                    e[2] += block[2]
-                stale_n += block[3]
+                rec.live(own + block[2])
                 if on_frame is not None:
                     # the hook may keep `final`: it is the caller's
                     # tensor, never a static buffer a replay overwrites
@@ -1265,16 +1225,10 @@ class WavefrontRenderer:
                         final.copy_(fb)
                     on_frame(final, total - feed.left_total())
             elif feed.left() == 0:
-                # drain: exact count, early exit, shrink buckets
-                handle, adj, own = counts[-1]
-                with rec.span("count_wait"):
-                    n = _count_value(handle)
-                stale_n = self._group_count(n + adj)
-                rec.live(n + own)
-                counts.clear()
-                if stale_n == 0:
+                # drain: early exit, shrink buckets
+                if n == 0:
                     break
-                need = max(_next_pow2(stale_n), 1024)
+                need = max(_next_pow2(n), 1024)
                 Bn = Bc
                 while Bn // 4 >= need:
                     Bn //= 4

@@ -21,11 +21,12 @@ split gives the single-card image up to float accumulation order.
 
 Lockstep: every rank enters every collective the same number of times.
 Once a pool step the ranks all-reduce (MAX, gloo, on the host) the
-lagged live count and rank 0's interrupt flag, so refills, shrinks and
-the stop are the group's decisions; a rank whose share is spent keeps
-stepping an empty pool. The drain runs each rank's pool to extinction
-without a collective. The frame is one all_reduce (SUM) of the ranks'
-partials at the end, identical on every rank.
+step's live count and rank 0's interrupt flag, so refills (sized to the
+group's largest count), shrinks and the stop are the group's decisions;
+a rank whose share is spent keeps stepping an empty pool. The drain
+runs each rank's pool to extinction without a collective. The frame is
+one all_reduce (SUM) of the ranks' partials at the end, identical on
+every rank.
 
 Interrupts checkpoint losslessly: the ranks' in-flight ids and untaken
 queue tails are gathered into one checkpoint, which resumes on any rank
@@ -74,15 +75,11 @@ class ShardedPoolRenderer(WavefrontRenderer):
             (socket.gethostname(), where))))
 
     # -- the loop's group hooks -------------------------------------------
-    def _group_step(self, lagged, interrupt):
+    def _group_step(self, n: int, interrupt):
         flag = (self.rank == 0 and interrupt is not None
                 and bool(interrupt()))
-        n, stop = dist.host_max([-1 if lagged is None else lagged,
-                                 int(flag)])
-        return (None if n < 0 else n), bool(stop)
-
-    def _group_count(self, n: int) -> int:
-        return dist.host_max([n])[0]
+        n, stop = dist.host_max([n, int(flag)])
+        return n, bool(stop)
 
     def fetch_partial(self, final) -> np.ndarray:
         """Host copy of the group's radiance-sum frame (npix, 4): the sum

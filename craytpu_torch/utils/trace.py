@@ -41,8 +41,10 @@ A frame record (Tracer.frames keeps the last KEEP of them, a dict each):
                      and span (the innermost host span open at its middle)
   counts             dispatches by kind, replays, captures, kernel launches
                      by wrapper (and those that replays added); the pool's
-                     steps, drain steps, refills, shrinks; lanes (sum of
-                     k * B over steps), live (live lane-bounces),
+                     steps, drain steps, refills, shrinks; refill_short
+                     (the dead lanes the refills left unfilled, B - live
+                     - m * Q a refill: the quanta's remainder); lanes
+                     (sum of k * B over steps), live (live lane-bounces),
                      live_bound (the part of live that is a bound), paths
                      (the queue entries the frame started with: a group's,
                      on a rank); h2d_bytes and d2h_bytes
@@ -56,8 +58,8 @@ host time stands for its device time, and every later mark's device time
 is that plus the events' elapsed time. On the CPU, which runs a
 dispatch's work inside the call, a mark is the host clock.
 
-Live lane-bounces come from the counts the pool loop already reads: a
-step's live-in is the previous step's count plus the lanes its refill
+Live lane-bounces come from the counts the pool loop reads once a step:
+a step's live-in is the previous step's count plus the lanes its refill
 took (the first step's: the prime's take). That is exact for a step of
 one bounce; for a step of k > 1 bounces live-in * k is an upper bound,
 counted also in live_bound.

@@ -301,14 +301,20 @@ def test_prime_equals_craytpu(exact, kind):
                      np.zeros((B, 4), np.float32)), smp.HALTON, "prime")
 
 
-def test_flush_pack_refill_equals_craytpu(exact):
+# (m, Q, live share): a power of two within half the pool, and the
+# pool loop's sizes since it refills to the newest count: an m that is no
+# power of two, with m * Q above B / 2
+@pytest.mark.parametrize("m,qdiv,live", [(2, 8, 0.4), (12, 16, 0.2)])
+def test_flush_pack_refill_equals_craytpu(exact, m, qdiv, live):
     jr, r = exact[smp.RANDOM]
     st = seeded_pool(r, 2)
-    st["alive"][:] = np.random.default_rng(3).random(B) < 0.4
+    st["alive"][:] = np.random.default_rng(3).random(B) < live
     npix = r.width * r.height
     final = np.random.default_rng(4).uniform(0, 2, (npix, 4)).astype(
         np.float32)
-    m, Q = 2, B // 8
+    Q = B // qdiv
+    # the tail the refill clears is dead, as the pool loop's count ensures
+    assert st["alive"].sum() <= B - m * Q
     qpix, qpass, take_n = 17, 1, 100
     fin = torch.from_numpy(final.copy())
     pool = r._flush_pack_refill(B, m, Q, fin, port_pool(st), qpix, qpass,

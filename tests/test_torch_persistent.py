@@ -9,8 +9,9 @@ the two packages images cannot be bit-equal (diffuse scatter calls
 sin/cos, whose libm results differ between XLA and PyTorch in the last
 bits), so they are held to the golden thresholds of
 craytpu/utils/golden.py:26-27 on sRGB u8 (golden.compare_u8). The step,
-refill and shrink schedule is a pure function of the inputs and must be
-equal in both packages."""
+refill and shrink schedule is a pure function of the inputs: the port
+refills to the live count of the step just run, craytpu to a count one
+step old, so each is held to its own rule."""
 
 import os
 
@@ -26,7 +27,7 @@ from craytpu_torch.models.wavefront_pt import WavefrontRenderer
 from craytpu_torch.runtime import checkpoint
 from craytpu_torch.scene.compile import compile_scene
 from craytpu_torch.scene.sceneloader import load_scene_from_file
-from craytpu_torch.utils import golden
+from craytpu_torch.utils import golden, trace
 
 torch.set_num_threads(2)
 
@@ -88,13 +89,17 @@ def record_jax(r, log):
 
 
 def record_port(r, log):
-    """The same log of the port's pool methods."""
+    """The same log of the port's pool methods; a step also logs the live
+    lanes it leaves (pool.alive.sum(): the exact count, read on the
+    CPU)."""
     pool_step, fpr = r._pool_step, r._flush_pack_refill
     shrink, drain = r._pack_shrink, r._drain_all
 
     def step(k, pool):
-        log.append(("step", pool.alive.shape[0], k))
-        return pool_step(k, pool)
+        width = pool.alive.shape[0]
+        out = pool_step(k, pool)
+        log.append(("step", width, k, int(out[0].alive.sum())))
+        return out
 
     def refill(B, m, Q, *a):
         log.append(("refill", m))
@@ -113,6 +118,50 @@ def record_port(r, log):
 
 def up_to_drain(log):
     return log[:log.index(("drain",))] if ("drain",) in log else log
+
+
+def assert_port_schedule(log, B, Q, total, drains):
+    """The port's rule, entry by entry of a record_port log of one
+    uninterrupted render_persistent: after each step of the full pool
+    while the queue holds ids, a refill of m = min((B - n) // Q,
+    ceil(left / Q)) quanta exactly when n <= B - Q (n: the step's live
+    count); once the queue is empty, a shrink to the bucket of n
+    (max(next_pow2(n), 1024), by quarters), then either the drain
+    (`drains`) or steps until no lane is alive."""
+    left = total - B
+    i = 0
+    while i < len(log):
+        e = log[i]
+        assert e[0] == "step", (i, e)
+        _, width, _, n = e
+        nxt = log[i + 1] if i + 1 < len(log) else None
+        if left > 0:
+            assert width == B, (i, e)
+            if n <= B - Q:
+                m = min((B - n) // Q, -(-left // Q))
+                assert nxt == ("refill", m), (i, e, nxt)
+                left -= min(m * Q, left)
+                i += 2
+                continue
+            assert nxt is not None and nxt[0] == "step", (i, e, nxt)
+            i += 1
+            continue
+        if n == 0:
+            assert nxt is None, (i, e, nxt)
+            return
+        need, Bn = max(1 << (n - 1).bit_length(), 1024), width
+        while Bn // 4 >= need:
+            Bn //= 4
+        if Bn < width:
+            assert nxt == ("shrink", Bn), (i, e, nxt)
+            i += 1
+            nxt = log[i + 1] if i + 1 < len(log) else None
+        if drains:
+            assert nxt == ("drain",), (i, e, nxt)
+            return
+        assert nxt is not None and nxt[0] == "step", (i, e, nxt)
+        i += 1
+    raise AssertionError("the log ends before the pool is empty")
 
 
 @pytest.fixture(scope="module")
@@ -158,26 +207,91 @@ def test_persistent_matches_jax_package(pair):
 @pytest.mark.parametrize("tail", ["up_to_drain", "host_drain"])
 def test_schedule_matches_jax_package(pair, tail, monkeypatch):
     """The sequence of pool steps (width, k), refills (m) and shrinks (Bn)
-    is craytpu's. up_to_drain: the default render, compared up to the
-    drain (craytpu drains in one device loop, the port in 8-bounce
-    steps). host_drain: with an interrupt callable (that never fires)
-    both packages drain step by step, so the whole sequence compares."""
+    follows the port's rule (assert_port_schedule), and, refilling to
+    the newest count, takes fewer steps than craytpu's for the same
+    paths. up_to_drain: the default render, up to the drain (craytpu
+    drains in one device loop, the port in 8-bounce steps). host_drain:
+    with an interrupt callable (that never fires) both packages drain
+    step by step, so the whole sequence is held."""
+    tr = pair["tr"]
+    B, total = tr.tile_rays, tr.width * tr.height * SPP
     if tail == "up_to_drain":
         jlog, tlog = pair["jlog"], pair["tlog"]
         assert ("drain",) in jlog and ("drain",) in tlog
         assert ("shrink", 2048) in jlog
+        assert_port_schedule(up_to_drain(tlog) + [("drain",)], B,
+                             tr.refill_quantum(B), total, drains=True)
         jlog, tlog = up_to_drain(jlog), up_to_drain(tlog)
     else:
         monkeypatch.setenv("CRAYTPU_POOL_K", "1")
-        jr, tr = pair["jr"], pair["tr"]
+        jr = pair["jr"]
         jlog, tlog = [], []
         record_jax(jr, jlog)
         record_port(tr, tlog)
         jr.render_persistent(spp=SPP, interrupt=lambda: False)
         tr.render_persistent(spp=SPP, interrupt=lambda: False)
         assert ("drain",) not in tlog
+        assert any(e[0] == "shrink" for e in tlog)
+        assert_port_schedule(tlog, B, tr.refill_quantum(B), total,
+                             drains=False)
     assert sum(e[0] == "refill" for e in tlog) >= 3
-    assert tlog == jlog
+    assert (sum(e[0] == "step" for e in tlog)
+            < sum(e[0] == "step" for e in jlog))
+
+
+def test_pool_refilled_to_newest_count(monkeypatch):
+    """From the frame record's live counts (CRAYTPU_TRACE=1, k=1): each
+    step's live-in is the pool's exact live count; every full-width step
+    after the first refill, while the queue holds ids, starts with fewer
+    than Q dead lanes; and refill_short is the dead lanes the refills
+    left (the queue is whole quanta, so every fresh lane is live)."""
+    monkeypatch.setenv("CRAYTPU_POOL_K", "1")
+    monkeypatch.setenv(trace.ENV, "1")
+    r = port_renderer(tile_rays=8192)
+    B = r.tile_rays
+    Q = r.refill_quantum(B)
+    total = r.width * r.height * SPP
+    assert (total - B) % Q == 0
+    events = []
+    pool_step, fpr = r._pool_step, r._flush_pack_refill
+    frame_step = trace._Frame.step
+
+    def step(k, pool):
+        events.append(("step", pool.alive.shape[0],
+                       int(pool.alive.sum())))
+        return pool_step(k, pool)
+
+    def refill(B, m, Q, final, pool, *a):
+        events.append(("refill", m, int(pool.alive.sum())))
+        return fpr(B, m, Q, final, pool, *a)
+
+    def record_step(rec, k, width, drain=False):
+        events.append(("record", rec.live_in))
+        return frame_step(rec, k, width, drain)
+    r._pool_step, r._flush_pack_refill = step, refill
+    monkeypatch.setattr(trace._Frame, "step", record_step)
+    r.render_persistent(spp=SPP)
+    rec = r.trace.last
+    steps = [(e[1], e[2]) for e in events if e[0] == "step"]
+    assert [e[1] for e in events if e[0] == "record"] == [
+        n for _, n in steps]
+    refills = [i for i, e in enumerate(events) if e[0] == "refill"]
+    assert len(refills) >= 3
+    short = 0
+    for j, i in enumerate(refills):
+        _, m, n = events[i]
+        after = next(e for e in events[i:] if e[0] == "step")
+        assert after[1] == B and B - after[2] == B - n - m * Q
+        short += B - n - m * Q
+        if j + 1 < len(refills):
+            # the queue still holds ids: every step up to the next
+            # refill starts with fewer than Q dead lanes
+            for e in events[i:refills[j + 1]]:
+                if e[0] == "step":
+                    assert e[1] == B and B - e[2] < Q, (j, e)
+    assert rec["counts"]["refill_short"] == short
+    assert rec["counts"]["refills"] == len(refills)
+    assert rec["counts"]["captures"] == 0
 
 
 def test_interrupt_checkpoint_resume_lossless(tmp_path, monkeypatch):
@@ -244,9 +358,12 @@ def test_pool_tensors_contiguous(monkeypatch):
         return pool_step(k, pool)
     r._pool_step = checked
     out = r.render_persistent(spp=SPP, interrupt=interrupt_at(3))
+    # an interrupt callable that never fires drains step by step, through
+    # the shrinks
     r.render_persistent(spp=SPP, resume={"final_sum": out[1],
                                          "pending": out[2],
-                                         "ranges": out[3]})
+                                         "ranges": out[3]},
+                        interrupt=lambda: False)
     assert 8192 in seen and 2048 in seen
 
 
