@@ -8,10 +8,14 @@ the CLI's `-s` passes (a progressive preview: the CLI's resumable queue
 of (pixel, pass) ids, handed one chunk of passes at a time), so every
 request traces its own paths at the same amount of work. The chunks
 cycle; the seed draws the first.
+
+`check` compares a kept frame with the plain reference on pixels drawn
+from the seed (portbench/check.py).
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -43,6 +47,28 @@ def first_chunk(traffic: dict, seed: int) -> int:
     from portbench import scenes
     return int(scenes.rng(seed, scenes.CHUNK).integers(
         0, chunks(traffic)[1]))
+
+
+def check(cell, text: str, adir: str, seed: int, outputs: list,
+          device: str) -> list:
+    """Each output's gaps (check.gaps) to the reference, which traces the
+    seed's pixels of the output's passes on `device`."""
+    import torch
+    from portbench import check as chk
+    from portbench import scenes
+    from portbench.reference import scene as rs
+    from portbench.reference import trace as rt
+    xs, ys = scenes.check_pixels(json.loads(text), int(cell.traffic[
+        "check_pixels"]), seed)
+    tab = rs.build(text, adir, device)
+    x = torch.tensor(xs, device=device)
+    y = torch.tensor(ys, device=device)
+    res = []
+    for (first, n), frame in outputs:
+        passes = rt.render_pixels(tab, x, y, first, n)
+        ref = combine(passes, tab.spp).cpu().numpy()
+        res.append(chk.gaps(np.asarray(frame), ref, xs, ys))
+    return res
 
 
 class Entry:

@@ -6,6 +6,13 @@ The traffic file names its entry, `portbench/drivers/<entry>.py`. Each
 metric is read by `portbench/metrics/<metric name>.py`. Adding a cell,
 a configuration, a traffic mix, an entry or a metric adds files and
 manifest entries; no file here changes.
+
+An entry's driver brings `Entry(scene_text, asset_dir, traffic, seed,
+device)`, with `setup`, `request`, `install_spans`, `lanes`, `launches`
+and `close`, and `check(cell, text, adir, seed, outputs, device)`, the
+comparison that decides `correct`: it compares the kept outputs with
+the plain reference and returns one dict an output, holding the numbers
+that the traffic's `limits` name.
 """
 
 from __future__ import annotations
@@ -73,5 +80,13 @@ class Cell:
         self.chips = int(self.spec["chips"])
 
     def driver(self):
-        return load_module(self.driver_path,
-                           "portbench_driver_" + self.traffic["entry"])
+        """The entry's driver module; one without `Entry` or `check` is
+        refused."""
+        mod = load_module(self.driver_path,
+                          "portbench_driver_" + self.traffic["entry"])
+        missing = [k for k in ("Entry", "check")
+                   if not callable(getattr(mod, k, None))]
+        if missing:
+            raise ImportError(f"{self.driver_path}: an entry driver defines "
+                              f"Entry and check; it lacks {missing}")
+        return mod

@@ -8,7 +8,8 @@ rows v0, e1 = v0 - v1, e2 = v2 - v0 and the face normal with the
 binary's fused cross product (poly.c:20-22), per-instance ray offsets
 from the instanced mesh's bounding box (instance.c:222-230), the
 material table (mesh materials in mesh order, then spheres), and the
-camera (camera.c:22-42). No BVH: the reference searches every triangle.
+camera (camera.c:22-42). No BVH: walk.py builds its own from these
+tables.
 
 Covered: lambertian and emissive legacy materials (OBJ/MTL `Kd`, `Ke`;
 sphere `color`, `intensity`), triangle and quad faces with or without

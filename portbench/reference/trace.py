@@ -3,9 +3,10 @@
 A straightforward, lane-parallel version of c-ray's path tracer
 (renderer/pathtrace.c) over the tables of `scene.build`: the camera ray
 with its tent-filter jitter, the closest hit by testing every triangle
-and sphere (no BVH), the hit record, the gradient sky on a miss, the
-legacy emission on a hit, the material's mix(transparent, diffuse,
-alpha) graph (c-ray's appendAlpha around a lambertian lobe), and
+and sphere (closest_hit; walk.py finds the same hits through box trees
+of its own, for many paths), the hit record, the gradient sky on a
+miss, the legacy emission on a hit, the material's mix(transparent,
+diffuse, alpha) graph (c-ray's appendAlpha around a lambertian lobe), and
 Russian roulette from depth 4. Each path's radiance is summed bounce by
 bounce in c-ray's order. The arithmetic is fp.py's, so a path that the
 timed path traces over the same winners rounds alike.
@@ -150,12 +151,15 @@ def sky(tab: Tables, d):
     return tab.sky_down * (1.0 - t) + tab.sky_up * t
 
 
-def trace(tab: Tables, xs, ys, passes, spp: int, store=None):
+def trace(tab: Tables, xs, ys, passes, spp: int, store=None,
+          search=closest_hit):
     """The radiance (N, 4) of the path of each (xs, ys, pass), N lanes,
     over tab.bounces bounces. The stream of each is seeded from its pixel
     and pass with spp passes in all. store, if given, is applied to each
     lane's ray, throughput and radiance as a bounce leaves them (the
-    control stores them in a lower precision)."""
+    control stores them in a lower precision). search(tab, o, d) finds
+    each ray's (t, prim, inst): closest_hit, or walk.Walk(tab), which
+    finds the same."""
     dev = xs.device
     N = xs.shape[0]
     pix = ys.to(torch.int64) * tab.width + xs.to(torch.int64)
@@ -167,7 +171,7 @@ def trace(tab: Tables, xs, ys, passes, spp: int, store=None):
     for depth in range(tab.bounces):
         if lanes.numel() == 0:
             break
-        t, prim, inst = closest_hit(tab, o, d)
+        t, prim, inst = search(tab, o, d)
         hit = inst >= 0
         # a miss takes the sky and ends
         miss = torch.nonzero(~hit).squeeze(1)
@@ -214,7 +218,7 @@ def trace(tab: Tables, xs, ys, passes, spp: int, store=None):
 
 
 def render_pixels(tab: Tables, xs, ys, first: int = 0, n: int | None = None,
-                  block: int = 4096, store=None):
+                  block: int = 4096, store=None, search=closest_hit):
     """The radiance of passes first .. first + n - 1 (all tab.spp passes
     by default) of each pixel, (P, n, 4), traced in blocks of `block`
     paths; each stream is seeded with the render's tab.spp passes."""
@@ -224,6 +228,6 @@ def render_pixels(tab: Tables, xs, ys, first: int = 0, n: int | None = None,
     py = ys.repeat_interleave(n)
     pa = (first + torch.arange(n, device=xs.device)).repeat(P)
     out = torch.cat([trace(tab, px[a:a + block], py[a:a + block],
-                           pa[a:a + block], tab.spp, store)
+                           pa[a:a + block], tab.spp, store, search)
                      for a in range(0, P * n, block)])
     return out.reshape(P, n, 4)

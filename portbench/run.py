@@ -10,10 +10,13 @@ to back for --seconds and reports the cell's end-to-end metrics; with
 --trace 1 it times the dispatches of a few whole requests without the
 profiler, then profiles a short window of whole requests, and reports
 the cell's per-layer metrics. Either way it then frees the program's state
-and checks the requests' outputs against the plain reference on pixels
-drawn from the seed. The last line of standard output is one JSON object
-(correct, attempted, failed, metrics, device, breakdown with --trace 1,
-checks); the numbers compared are also the last lines of standard error.
+and hands the kept outputs (the window's last request and one drawn
+from the seed) to the entry's own `check`, which compares them with the
+plain reference; each output is correct where every number that the
+traffic's `limits` name is within its limit. The last line of standard
+output is one JSON object (correct, attempted, failed, metrics, device,
+breakdown with --trace 1, checks); the numbers compared are also the
+last lines of standard error.
 
 Exit codes: 0 with a result; 2 for bad arguments; 3 when no CUDA card
 (or too few for the cell) is visible; 4 when JAX or the JAX package was
@@ -178,29 +181,6 @@ def traced(entry, cell, keep: Keep) -> dict:
             "requests": n}
 
 
-def check(cell, entry_mod, text: str, adir: str, seed: int, outputs: list,
-          device: str) -> list:
-    """Each output's gaps (check.gaps) to the reference, which traces the
-    seed's pixels of the output's passes on `device`."""
-    import numpy as np
-    import torch
-    from portbench import check as chk
-    from portbench import scenes
-    from portbench.reference import scene as rs
-    from portbench.reference import trace as rt
-    xs, ys = scenes.check_pixels(json.loads(text), int(cell.traffic[
-        "check_pixels"]), seed)
-    tab = rs.build(text, adir, device)
-    x = torch.tensor(xs, device=device)
-    y = torch.tensor(ys, device=device)
-    res = []
-    for (first, n), frame in outputs:
-        passes = rt.render_pixels(tab, x, y, first, n)
-        ref = entry_mod.combine(passes, tab.spp).cpu().numpy()
-        res.append(chk.gaps(np.asarray(frame), ref, xs, ys))
-    return res
-
-
 def run_cell(cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: float | None = None) -> dict:
     """One run of `cell` on `device` (the card; "cpu" serves the tests,
@@ -260,7 +240,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     if device == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = check(cell, entry_mod, text, adir, seed, outputs, device)
+    res = entry_mod.check(cell, text, adir, seed, outputs, device)
     result["reference_s"] = time.perf_counter() - t0
     limits = cell.traffic["limits"]
     checks, failed = {}, 0

@@ -1,7 +1,7 @@
 """What a run loads: no module whose top-level name is jax, jaxlib, flax,
 optax or craytpu (whole names: craytpu_torch is the program), and the
-reference and the control load nothing of craytpu_torch either. Each in
-a fresh process."""
+reference, its BVH walk and the control load nothing of craytpu_torch
+either. Each in a fresh process."""
 
 from __future__ import annotations
 
@@ -33,6 +33,24 @@ print(json.dumps({{"off_share": r["off_share"],
                    "top": sorted({{m.split(".")[0] for m in sys.modules}})}}))
 """
 
+WALK = """
+import sys, json, torch
+sys.path.insert(0, {root!r}); sys.path.insert(0, {tests!r})
+from portbench_tiny import tiny_cell
+from portbench import scenes
+from portbench.reference import scene as rs, trace as rt, walk
+c = tiny_cell("instances_render")
+text = scenes.scene_text(c.config, c.traffic)
+tab = rs.build(text, scenes.check_assets(c.config, c.root), "cpu")
+x, y = scenes.check_pixels(json.loads(text), 16, 5)
+out = rt.render_pixels(tab, torch.tensor(x), torch.tensor(y), 0, 1,
+                       search=walk.Walk(tab))
+print(json.dumps({{"lit": bool((out > 0).any()),
+                   "top": sorted({{m.split(".")[0] for m in sys.modules}})}}))
+"""
+
+BARRED = {"jax", "jaxlib", "flax", "optax", "craytpu", "craytpu_torch"}
+
 
 def _child(src: str) -> dict:
     tests = os.path.dirname(os.path.abspath(__file__))
@@ -57,5 +75,10 @@ def test_run_loads_no_jax_and_no_jax_package():
 def test_reference_loads_nothing_of_the_program():
     got = _child(REF)
     assert got["off_share"] > 0.0
-    assert not {"jax", "jaxlib", "flax", "optax", "craytpu",
-                "craytpu_torch"} & set(got["top"])
+    assert not BARRED & set(got["top"])
+
+
+def test_walk_loads_nothing_of_the_program():
+    got = _child(WALK)
+    assert got["lit"] and "portbench" in got["top"]
+    assert not BARRED & set(got["top"])
